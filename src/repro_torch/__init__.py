@@ -1,0 +1,12 @@
+"""PyTorch + CUDA port of the PLEX serving system (``repro`` is the JAX
+reference it is held against).
+
+The host build (spline, auto-tune, radix/CHT layer, sharded snapshot) stays
+numpy; lookups run on an NVIDIA GPU through the hand-written CUDA kernel in
+``kernels/csrc/stacked_lookup.cu``, with a plain PyTorch version of the same
+pipeline for CPU tensors. Entry points default to the CUDA device and raise
+without one unless ``device="cpu"`` is passed.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

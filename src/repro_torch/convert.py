@@ -1,0 +1,68 @@
+"""Carry index state across: a port ``Snapshot`` from plain arrays.
+
+``snapshot_from_arrays`` takes, as numpy arrays, what a sharded PLEX snapshot
+holds — the key array, the shard offsets, and per shard the spline, the radix
+layer and the tuning — and assembles the port's ``Snapshot`` with no rebuild.
+So an index built elsewhere (the reference package, or a persisted
+generation once the port reads them) is served by the port as it is.
+
+Per shard, ``shards[s]`` is a mapping with
+
+* ``spline_keys`` (uint64) and ``spline_positions`` (int64);
+* ``layer``: ``{"kind": "radix", "table", "shift", "r", "min_key"}`` or
+  ``{"kind": "cht", "cells", "r", "delta", "max_depth"}``;
+* ``tuning``: the keyword fields of ``core.autotune.TuneResult``.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+
+from .core.autotune import TuneResult
+from .core.cht import CHT
+from .core.index import Snapshot
+from .core.plex import PLEX, BuildStats
+from .core.radix_table import RadixTable
+from .core.spline import Spline
+
+
+def _layer(spec: Mapping[str, Any], n_spline: int):
+    kind = spec["kind"]
+    if kind == "radix":
+        table = np.ascontiguousarray(spec["table"], dtype=np.uint32)
+        return RadixTable(r=int(spec["r"]), min_key=np.uint64(spec["min_key"]),
+                          shift=int(spec["shift"]), table=table,
+                          n_keys=n_spline)
+    if kind == "cht":
+        r = int(spec["r"])
+        cells = np.ascontiguousarray(spec["cells"], dtype=np.uint32)
+        if cells.size % (1 << r):
+            raise ValueError("CHT cells are not a whole number of nodes")
+        return CHT(r=r, delta=int(spec["delta"]), cells=cells,
+                   n_nodes=cells.size >> r, max_depth=int(spec["max_depth"]),
+                   n_keys=n_spline)
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
+def snapshot_from_arrays(keys: np.ndarray, offsets: np.ndarray,
+                         shards: Sequence[Mapping[str, Any]], eps: int,
+                         device=None) -> Snapshot:
+    """The port's ``Snapshot`` over these arrays (see the module docstring);
+    its stacked planes go to ``device`` (default: the CUDA card)."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    if len(shards) != offsets.size or offsets[0] != 0:
+        raise ValueError("one shard per offset, starting at 0")
+    ends = np.append(offsets[1:], keys.size)
+    plexes = []
+    for lo, hi, sh in zip(offsets, ends, shards):
+        sk = np.ascontiguousarray(sh["spline_keys"], dtype=np.uint64)
+        sp = np.ascontiguousarray(sh["spline_positions"], dtype=np.int64)
+        spline = Spline(keys=sk, positions=sp, eps=int(eps),
+                        n_keys=int(hi - lo))
+        plexes.append(PLEX(spline=spline, layer=_layer(sh["layer"], sk.size),
+                           tuning=TuneResult(**sh["tuning"]),
+                           keys=keys[lo:hi], eps=int(eps),
+                           stats=BuildStats(0.0, 0.0, 0.0, 0.0)))
+    return Snapshot(keys, eps, offsets, plexes, device=device)

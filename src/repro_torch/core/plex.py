@@ -1,0 +1,124 @@
+"""PLEX: Practical Learned Index (the paper's §2 assembly), host build.
+
+Build: eps-bounded greedy spline over the data -> auto-tune (paper §3) ->
+build the chosen radix layer (flat radix table or CHT) over the spline keys.
+The only user-facing hyperparameter is ``eps``; the index is guaranteed to be
+at most twice the spline size.
+
+This is the port's copy of ``repro.core.plex``'s build half. Lookups run on
+the device (``repro_torch.kernels.stacked_lookup``); the host keeps only the
+fixed-trip ``bounded_lower_bound`` search, the branch-free form every device
+search of the pipeline follows.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Union
+
+import numpy as np
+
+from .autotune import TuneResult, tune
+from .cht import CHT, build_cht
+from .radix_table import RadixTable, build_radix_table
+from .spline import Spline, build_spline
+
+
+def bounded_lower_bound(keys: np.ndarray, q: np.ndarray, lo: np.ndarray,
+                        hi: np.ndarray, *, side: str = "right") -> np.ndarray:
+    """Vectorised branchless binary search restricted to [lo, hi] (inclusive).
+
+    side="right": largest i in [lo, hi] with keys[i] <= q (predecessor;
+    assumes keys[lo] <= q or the answer saturates at lo).
+    side="left": smallest i in [lo, hi] with keys[i] >= q (lower bound;
+    returns hi + 1 if no window key is >= q, matching searchsorted on a
+    full [0, n-1] window).
+    Fixed trip count ceil(log2(max window)).
+    """
+    lo = lo.astype(np.int64).copy()
+    hi = hi.astype(np.int64).copy()
+    width = int(np.max(hi - lo)) if lo.size else 0
+    if side == "right":
+        # answer space [lo, hi]: width + 1 candidates
+        trips = max(int(np.ceil(np.log2(width + 1))), 0) if width > 0 else 0
+        for _ in range(trips):
+            mid = (lo + hi + 1) >> 1
+            go_hi = keys[np.minimum(mid, keys.size - 1)] <= q
+            lo = np.where(go_hi, mid, lo)
+            hi = np.where(go_hi, hi, mid - 1)
+        return lo
+    # answer space [lo, hi + 1]: width + 2 candidates (hi + 1 = "no window
+    # key is >= q"), so one extra trip when width + 2 crosses a power of two
+    trips = int(np.ceil(np.log2(width + 2))) if lo.size else 0
+    for _ in range(trips):
+        mid = (lo + hi) >> 1
+        go_lo = keys[np.minimum(mid, keys.size - 1)] >= q
+        hi = np.where(go_lo, mid, hi)
+        lo = np.where(go_lo, lo, mid + 1)
+    return lo
+
+
+@dataclasses.dataclass
+class BuildStats:
+    spline_s: float
+    tune_s: float
+    layer_s: float
+    total_s: float
+
+
+def freeze_arrays(*arrays: np.ndarray) -> None:
+    """Mark numpy arrays immutable (``flags.writeable = False``).
+
+    A snapshot never changes after construction: its device planes alias
+    these arrays' contents, so a write would silently diverge from them.
+    Freezing turns that into an immediate ``ValueError`` at the write site.
+    """
+    for a in arrays:
+        if isinstance(a, np.ndarray):
+            a.flags.writeable = False
+
+
+@dataclasses.dataclass
+class PLEX:
+    spline: Spline
+    layer: Union[RadixTable, CHT]
+    tuning: TuneResult
+    keys: np.ndarray          # the indexed (sorted, possibly duplicated) data
+    eps: int
+    stats: BuildStats
+
+    @property
+    def size_bytes(self) -> int:
+        """Index size (spline + radix layer), paper's size metric."""
+        return self.spline.size_bytes + self.layer.size_bytes
+
+    def freeze(self) -> "PLEX":
+        """Make every host array backing this index read-only (in place)."""
+        layer_arr = (self.layer.table
+                     if isinstance(self.layer, RadixTable)
+                     else self.layer.cells)
+        freeze_arrays(self.keys, self.spline.keys, self.spline.positions,
+                      layer_arr)
+        return self
+
+
+def build_plex(keys: np.ndarray, eps: int, *,
+               r_max_radix: int = 24, r_max_cht: int = 16,
+               delta_max: int = 1024, tune_sample: int | None = None,
+               budget_bytes: int | None = None) -> PLEX:
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    t0 = time.perf_counter()
+    spline = build_spline(keys, eps)
+    t1 = time.perf_counter()
+    tuning = tune(spline, keys, r_max_radix=r_max_radix, r_max_cht=r_max_cht,
+                  delta_max=delta_max, sample=tune_sample,
+                  budget_bytes=budget_bytes)
+    t2 = time.perf_counter()
+    if tuning.kind == "radix":
+        layer: Union[RadixTable, CHT] = build_radix_table(spline.keys, tuning.r)
+    else:
+        layer = build_cht(spline.keys, tuning.r, tuning.delta)
+    t3 = time.perf_counter()
+    return PLEX(spline=spline, layer=layer, tuning=tuning, keys=keys,
+                eps=eps, stats=BuildStats(spline_s=t1 - t0, tune_s=t2 - t1,
+                                          layer_s=t3 - t2, total_s=t3 - t0))

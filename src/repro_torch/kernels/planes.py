@@ -1,0 +1,317 @@
+"""Device planes of the stacked lookup pipeline (the port of
+``repro.kernels.planes``).
+
+A host-built ``PLEX`` is converted once into biased int64 key planes
+(``keys.py``), a float32 rank plane, max-key-padded data planes and the
+static search parameters (eps slack, window geometry, layer mode). Every
+contract of the reference is kept:
+
+* the eps slack ``ceil(max_span * 2^-22) + 2`` and
+  ``window = round_up(2 * eps_eff + 2, 128)``;
+* the float32 rank plane holds < 2^24 positions;
+* the global index plane is int32, so ``n_real_total < 2^31``;
+* windows at most ``COUNT_MODE_MAX`` wide search by compare-and-count;
+* spline, data and delta planes are padded with the max key.
+
+Stacked layout (multi-shard serving): per-shard planes are padded to the max
+shard size and stored flattened shard-major (``[S * n_spline_max]`` /
+``[S * n_data_max]``), so a query routed to shard ``s`` gathers at
+``s * row_len + local``. Genuinely per-shard scalars (radix shift, min key,
+table extent; CHT delta) become ``[S]`` parameter planes; window geometry
+takes the max over shards. Shards whose layers cannot be unified (mixed
+radix/CHT kinds, or CHT shards with different radix widths) or a global key
+count past int32 make ``build_stacked_planes`` return ``None``, and the
+service serves shard by shard instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from ..core.cht import CHT
+from ..core.plex import PLEX
+from ..core.radix_table import RadixTable
+from .keys import MAX_BIASED, to_biased
+
+COUNT_MODE_MAX = 512    # windows at most this wide use compare-and-count
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pad_queries(q: np.ndarray, block: int) -> tuple[np.ndarray, int]:
+    """Pad a query batch to a block multiple by repeating the last query.
+
+    Returns (padded queries, original batch size)."""
+    q = np.asarray(q, dtype=np.uint64)
+    b = q.size
+    bp = round_up(max(b, block), block)
+    if bp > b:
+        q = np.concatenate([q, np.repeat(q[-1:], bp - b)])
+    return q, b
+
+
+def finalize_indices(out, n_queries: int, n_real: int) -> np.ndarray:
+    """Strip padding lanes and clamp past-the-end absent-key results to
+    ``n_real``. ``out`` may be a tensor on any device."""
+    if isinstance(out, torch.Tensor):
+        out = out.cpu().numpy()
+    return np.minimum(np.asarray(out)[:n_queries].astype(np.int64), n_real)
+
+
+@dataclasses.dataclass
+class _HostStatics:
+    """The scalar half of ``_HostPlanes``: everything derivable without
+    touching the bulk key array."""
+    kind: str
+    layer_np: dict[str, np.ndarray]
+    static: dict[str, Any]
+    eps_eff: int
+    window: int
+    n_data: int
+    n_real: int
+
+
+@dataclasses.dataclass
+class _HostPlanes:
+    """Host-side (numpy) planes + static params for one PLEX."""
+    sk: np.ndarray            # biased int64 spline keys
+    spos: np.ndarray          # float32 spline ranks
+    dk: np.ndarray            # biased int64 data keys, max-key padded
+    n_data: int
+    n_real: int
+    kind: str
+    layer_np: dict[str, np.ndarray]
+    static: dict[str, Any]
+    eps_eff: int
+    window: int
+
+
+def _host_statics(px: PLEX) -> _HostStatics:
+    """Static search parameters of one PLEX (no plane construction).
+
+    Float32 interpolation cannot reproduce float64 predictions bit for bit,
+    so the eps window is widened by a static ``slack`` (2 + max segment
+    position span * 2^-22, covering worst-case f32 rounding of
+    ``y0 + t*(y1-y0)``).
+    """
+    if px.spline.positions.size and px.spline.positions[-1] >= (1 << 24):
+        raise ValueError("float32 rank plane supports < 2^24 positions; "
+                         "shard the index first (serving does)")
+    spans = np.diff(px.spline.positions)
+    max_span = int(spans.max()) if spans.size else 1
+    slack = int(np.ceil(max_span * 2.0 ** -22)) + 2
+    eps_eff = px.eps + slack
+    window = round_up(2 * eps_eff + 2, 128)
+    n_real = px.keys.size
+    n_pad = max(round_up(n_real, 128), window)
+
+    if isinstance(px.layer, RadixTable):
+        kind = "radix"
+        layer_np = {"table": np.asarray(px.layer.table)}
+        max_win = px.layer.max_window
+        static = dict(shift=int(px.layer.shift), r=int(px.layer.r),
+                      min_key=int(to_biased(
+                          np.asarray([px.layer.min_key]))[0]),
+                      max_win=int(max_win),
+                      mode="count" if max_win <= COUNT_MODE_MAX
+                      else "bisect")
+    elif isinstance(px.layer, CHT):
+        kind = "cht"
+        layer_np = {"cells": np.asarray(px.layer.cells)}
+        static = dict(r=int(px.layer.r),
+                      levels=int(px.layer.max_depth) + 1,
+                      delta=int(px.layer.delta),
+                      mode="count" if px.layer.delta + 1 <= COUNT_MODE_MAX
+                      else "bisect")
+    else:
+        raise TypeError(f"unknown layer {type(px.layer).__name__}")
+    return _HostStatics(kind=kind, layer_np=layer_np, static=static,
+                        eps_eff=eps_eff, window=window, n_data=n_pad,
+                        n_real=n_real)
+
+
+def _host_planes(px: PLEX) -> _HostPlanes:
+    """Host PLEX -> host plane arrays + static search parameters."""
+    hs = _host_statics(px)            # includes the f32 rank-plane guard
+    dk = np.full(hs.n_data, MAX_BIASED, dtype=np.int64)
+    dk[:hs.n_real] = to_biased(px.keys)
+    sk = to_biased(px.spline.keys)
+    spos = px.spline.positions.astype(np.float32)
+    if sk.size == 1:
+        # every key of the shard is equal: a one-point spline has no
+        # segment, and the clip to [0, n_spline - 2] would gather index -1,
+        # another shard's row (the reference does, ROADMAP queue 3, R4).
+        # A doubled point is a zero-width segment predicting its own rank.
+        sk, spos = np.repeat(sk, 2), np.repeat(spos, 2)
+    return _HostPlanes(sk=sk, spos=spos,
+                       dk=dk, n_data=hs.n_data, n_real=hs.n_real,
+                       kind=hs.kind, layer_np=hs.layer_np, static=hs.static,
+                       eps_eff=hs.eps_eff, window=hs.window)
+
+
+@dataclasses.dataclass
+class DeltaPlanes:
+    """Device-resident sorted delta buffer (updatable serving).
+
+    The logical content is a sorted multiset of (key, signed weight)
+    entries: ``+1`` per live inserted key, ``-multiplicity`` per tombstoned
+    snapshot key. ``cum0`` is the exclusive prefix sum of the weights
+    (length ``cap + 1``, leading 0), so the merged-lookup rank adjustment
+    for a query ``q`` is ``cum0[# delta keys < q]``. Pad keys are the max
+    key with weight 0, so padding never perturbs the adjustment.
+    """
+    keys: torch.Tensor        # biased int64 [cap]
+    cum0: torch.Tensor        # int32 [cap + 1], exclusive weight prefix
+    cap: int
+    n_entries: int            # real (unpadded) entries
+
+
+def build_delta_planes(keys: np.ndarray, weights: np.ndarray, cap: int,
+                       device) -> DeltaPlanes:
+    """Sorted delta entries -> padded device planes (see ``DeltaPlanes``)."""
+    keys = np.asarray(keys, dtype=np.uint64)
+    weights = np.asarray(weights, dtype=np.int64)
+    if keys.size > cap:
+        raise ValueError(f"delta size {keys.size} exceeds capacity {cap}")
+    if np.any(keys[1:] < keys[:-1]):
+        raise ValueError("delta keys must be sorted")
+    kb = np.full(cap, MAX_BIASED, dtype=np.int64)
+    kb[:keys.size] = to_biased(keys)
+    cum0 = np.zeros(cap + 1, dtype=np.int64)
+    np.cumsum(weights, out=cum0[1:keys.size + 1])
+    cum0[keys.size + 1:] = cum0[keys.size]
+    if np.abs(cum0).max(initial=0) >= (1 << 31):
+        raise ValueError("delta weight prefix exceeds int32 range")
+    return DeltaPlanes(keys=torch.from_numpy(kb).to(device),
+                       cum0=torch.from_numpy(cum0.astype(np.int32)).to(device),
+                       cap=int(cap), n_entries=int(keys.size))
+
+
+@dataclasses.dataclass
+class StackedPlanes:
+    """Shard-major fused planes of several shard-local PLEX indexes (layout
+    in the module docstring), consumed by ``stacked_lookup``."""
+    # spline planes, [S * n_spline_max] row-major flat
+    sk: torch.Tensor          # biased int64
+    spos: torch.Tensor        # float32
+    # data plane, [S * n_data_max] row-major flat
+    dk: torch.Tensor          # biased int64
+    # per-shard geometry planes, [S]
+    n_spline: torch.Tensor    # int32 real spline points per shard
+    n_real: torch.Tensor      # int32 real keys per shard
+    row_off: torch.Tensor     # int32 global key offset per shard
+    shard_min: torch.Tensor   # biased int64 routing plane: first key per shard
+    # shapes / unified statics
+    n_shards: int
+    n_spline_max: int
+    n_data_max: int
+    n_real_total: int
+    kind: str                 # "radix" | "cht"
+    layer_arrays: dict[str, torch.Tensor]
+    static: dict[str, Any]
+    eps_eff: int              # max over shards
+    window: int               # max over shards
+
+    @property
+    def device(self) -> torch.device:
+        return self.dk.device
+
+
+def build_stacked_planes(plexes: Sequence[PLEX], row_off: np.ndarray,
+                         device, host_planes: Sequence[_HostPlanes] | None
+                         = None) -> StackedPlanes | None:
+    """Fuse shard-local PLEX indexes into one ``StackedPlanes`` on
+    ``device``, or ``None`` when they cannot be unified (see the module
+    docstring). ``row_off[s]`` is shard ``s``'s global key offset."""
+    # the gates read statics only: no bulk plane is built for shards that
+    # do not unify
+    hss = (list(host_planes) if host_planes is not None
+           else [_host_statics(px) for px in plexes])
+    kinds = {hs.kind for hs in hss}
+    if len(kinds) != 1:
+        return None
+    kind = kinds.pop()
+    if kind == "cht" and len({hs.static["r"] for hs in hss}) != 1:
+        return None
+    n_real_total = int(row_off[-1]) + hss[-1].n_real
+    if n_real_total >= (1 << 31):
+        return None
+    hps = (list(host_planes) if host_planes is not None
+           else [_host_planes(px) for px in plexes])
+
+    s_count = len(hps)
+    eps_eff = max(hp.eps_eff for hp in hps)
+    window = max(hp.window for hp in hps)
+    n_spline_max = max(hp.sk.size for hp in hps)
+    n_data_max = max(max(hp.n_data for hp in hps), window)
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def flat(arrays, n: int, dtype, fill) -> np.ndarray:
+        out = np.empty((len(arrays), n), dtype=dtype)
+        for row, a in zip(out, arrays):
+            row[:a.size] = a
+            row[a.size:] = a[-1] if fill is None else fill
+        return out.reshape(-1)
+
+    sk = flat([hp.sk for hp in hps], n_spline_max, np.int64, MAX_BIASED)
+    # the rank-plane pad repeats the last rank (never read: segments are
+    # clamped to n_spline - 2 before interpolation)
+    spos = flat([hp.spos for hp in hps], n_spline_max, np.float32, None)
+    dk = flat([hp.dk for hp in hps], n_data_max, np.int64, MAX_BIASED)
+    mins = to_biased(np.asarray([px.keys[0] for px in plexes], np.uint64))
+
+    if kind == "radix":
+        tables = [hp.layer_np["table"] for hp in hps]
+        sizes = np.asarray([t.size for t in tables], dtype=np.int64)
+        table_off = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        max_win = max(hp.static["max_win"] for hp in hps)
+        layer_arrays = {
+            "table": put(np.concatenate(tables).astype(np.int32)),
+            "table_off": put(table_off.astype(np.int32)),
+            "shift": put(np.asarray([hp.static["shift"] for hp in hps],
+                                    np.int32)),
+            "p_max": put(np.asarray([(1 << hp.static["r"]) - 1
+                                     for hp in hps], np.int32)),
+            "lmin": put(np.asarray([hp.static["min_key"] for hp in hps],
+                                   np.int64)),
+        }
+        static = dict(max_win=int(max_win),
+                      mode="count" if max_win <= COUNT_MODE_MAX
+                      else "bisect")
+    else:
+        cells = [hp.layer_np["cells"] for hp in hps]
+        sizes = np.asarray([c.size for c in cells], dtype=np.int64)
+        cells_off = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        delta_max = max(hp.static["delta"] for hp in hps)
+        levels = max(hp.static["levels"] for hp in hps)
+        r = int(hps[0].static["r"])
+        if (levels - 1) * r >= 64:
+            raise ValueError("CHT descends past 64 key bits")
+        layer_arrays = {
+            # uint32 cells (top bit = child flag) reinterpreted as int32
+            "cells": put(np.concatenate(cells).astype(np.uint32)
+                         .view(np.int32)),
+            "cells_off": put(cells_off.astype(np.int32)),
+            "delta": put(np.asarray([hp.static["delta"] for hp in hps],
+                                    np.int32)),
+        }
+        static = dict(r=r, levels=levels, delta_max=int(delta_max),
+                      mode="count" if delta_max + 1 <= COUNT_MODE_MAX
+                      else "bisect")
+
+    return StackedPlanes(
+        sk=put(sk), spos=put(spos), dk=put(dk),
+        n_spline=put(np.asarray([hp.sk.size for hp in hps], np.int32)),
+        n_real=put(np.asarray([hp.n_real for hp in hps], np.int32)),
+        row_off=put(np.asarray(row_off, np.int32)),
+        shard_min=put(mins),
+        n_shards=s_count, n_spline_max=n_spline_max, n_data_max=n_data_max,
+        n_real_total=n_real_total, kind=kind, layer_arrays=layer_arrays,
+        static=static, eps_eff=eps_eff, window=window)
