@@ -2,14 +2,21 @@
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--serve-keys 200000000]
+                          [--index-keys 16777216]
 
-Builds the port's CUDA kernel from this checkout's sources, holds it against
-its plain PyTorch version on the card, then drives the port's main path — a
-PlexService over 200M SOSD-scale ``amzn`` keys answering lookup requests,
-merged lookups after inserts and deletes, and a merge — and checks every
-answer against ``np.searchsorted``. Each phase prints one JSON line; the
-``kernels`` line carries each kernel's launches on the main path, its time,
-its plain version's time, its bound and a library yardstick; the last line is
+Builds the port's CUDA kernels from this checkout's sources, holds each
+against its plain PyTorch version on the card, then drives the port's two
+paths and checks every answer against ``np.searchsorted``:
+
+* serving (K1): a PlexService over 200M SOSD-scale ``amzn`` keys answering
+  lookup requests, merged lookups after inserts and deletes, and a merge;
+* the per-index path (K2/K3 and K4): ``LearnedIndex.lookup`` over 2^24 keys
+  of each SOSD dataset (the most one index's float32 rank plane holds), then
+  the {radix, CHT} x {spline count, bisect} x {probe count, bisect} matrix.
+
+Each phase prints one JSON line; the ``kernels`` line carries each kernel's
+launches on its path, its time, its plain version's time, its bound and a
+library yardstick; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<card>", "count": 1}}
 
@@ -36,6 +43,9 @@ REQUESTS = 8
 MERGED_REQUESTS = 4
 BLOCK = 65536
 DELTA_CAP = 4096
+INDEX_KEYS = 1 << 24              # the f32 rank plane's limit for one index
+INDEX_DATASETS = ("amzn", "face", "osm", "wiki")
+INDEX_LOOKUPS = 3                 # timed lookups per dataset
 # HBM rate of one H100 SXM (NVIDIA's data sheet, at 700 W): the bound's
 # denominator; the measured copy rate is printed beside it
 PEAK_HBM_TBS = 3.35
@@ -58,8 +68,12 @@ def make_queries(keys: np.ndarray, n: int, rng) -> np.ndarray:
 
 
 def device_ms(fn, device, reps: int = 5) -> float:
-    """Mean milliseconds of ``fn()`` on ``device`` (CUDA events on the card,
-    after one warm-up call)."""
+    """Mean milliseconds of ``fn()`` on ``device``: on the card, CUDA events
+    around ``reps`` calls, after one warm-up call. The card is first given
+    a spin kernel (``torch.cuda._sleep``) twice as long as the host took
+    for one call, so every timed launch is queued before the first one
+    starts: the events then time the device's work, not the host's launch
+    overhead between launches."""
     import torch
     fn()
     if device.type != "cuda":
@@ -67,9 +81,15 @@ def device_ms(fn, device, reps: int = 5) -> float:
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(device)
+    host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize(device)
+    # ~2e9 cycles a second at the H100's clocks; at most a second of spin
+    torch.cuda._sleep(int(min(2 * reps * host_s, 1.0) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -86,6 +106,15 @@ def plain_chunked(sp, probe, q, delta, chunk: int = BLOCK):
     parts = [SL.stacked_lookup_plain(sp, probe, q[i:i + chunk], delta)
              for i in range(0, q.numel(), chunk)]
     return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def chunked(fn, q, *rest, chunk: int = BLOCK):
+    """``fn(q, *rest)`` over ``q`` (and the per-query tensors in ``rest``)
+    in ``chunk``-sized pieces: the plain versions' count modes build
+    [chunk, width] gathers."""
+    import torch
+    return torch.cat([fn(q[i:i + chunk], *(r[i:i + chunk] for r in rest))
+                      for i in range(0, q.numel(), chunk)])
 
 
 # ------------------------------------------------------------------ env ----
@@ -383,8 +412,8 @@ def phase_serve(device, seed: int, n_keys: int, n_queries: int) -> dict:
 
 def profile_request(svc, q, top: int = 10) -> list:
     """Where one request's host time goes: ``cProfile`` over one
-    ``lookup``, the functions with the most own time (ms). Native calls
-    (numpy, torch) show under their own names."""
+    ``svc.lookup`` (a service or an index), the functions with the most own
+    time (ms). Native calls (numpy, torch) show under their own names."""
     import cProfile
     import pstats
     prof = cProfile.Profile()
@@ -454,12 +483,223 @@ def phase_merge(device, seed: int, n_keys: int, n_queries: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- index ----
+
+def index_bound_bytes(px, q: np.ndarray, kernel: str) -> int:
+    """Bytes one 2^20-query launch of ``kernel`` must move at least, from
+    this launch's data: K2/K3 read each query's 8 B key and write its 4 B
+    base, and read once each distinct 32 B sector of the spline keys (8 B)
+    and ranks (4 B) at both ends of the queries' segments; K4 reads each
+    query's key and base and writes its index (16 B), and reads once each
+    distinct data-plane sector holding an answer. Layer cells and table
+    entries are left out, so the count errs low."""
+    if kernel == "bounded_search":
+        rank = np.searchsorted(px.keys, q, "left")
+        return q.size * 16 + 32 * np.unique(rank // 4).size
+    sk = px.spline.keys
+    seg = np.clip(np.searchsorted(sk, q, "right") - 1, 0,
+                  max(sk.size - 2, 0))
+    ends = np.concatenate([seg, seg + 1])
+    return q.size * 12 + 32 * (np.unique(ends // 4).size
+                               + np.unique(ends // 8).size)
+
+
+def index_times(dp, px, qd, q_np, base, device) -> dict:
+    """Each kernel of ``dp``'s lookup over the device queries ``qd`` (K2 or
+    K3, then K4 from ``base``) held against its plain version exactly, then
+    the CUDA-event time of one launch, its plain version's, its bound and,
+    for K4, ``torch.searchsorted`` over the data plane. The launches made
+    here are not the main path's."""
+    import torch
+    from repro_torch.kernels import bounded_search as BS
+    from repro_torch.kernels import segment_lookup as SEG
+    pp = dp.planes
+    seg_name = "radix_segment_lookup" if pp.kind == "radix" \
+        else "cht_segment_lookup"
+    real = pp.dk[:pp.n_real]
+    out = {}
+    for name, kern, plain, lib in (
+            (seg_name, lambda: SEG.window_base(pp, qd),
+             lambda: chunked(lambda c: SEG.window_base_plain(pp, c), qd),
+             None),
+            ("bounded_search",
+             lambda: BS.bounded_search(pp.dk, qd, base, window=pp.window,
+                                       mode=BS.DEFAULT_PROBE),
+             lambda: chunked(lambda c, b: BS.probe_lower_bound(
+                 pp.dk, c, b.long(), window=pp.window,
+                 mode=BS.DEFAULT_PROBE),
+                 qd, base),
+             lambda: torch.searchsorted(real, qd))):
+        err = int((kern().long() - plain().long()).abs().max())
+        check(err == 0, f"{name} differs from its plain version by {err}")
+        out[name] = dict(
+            max_abs_err=err, ms=device_ms(kern, device, reps=10),
+            plain_ms=device_ms(plain, device, reps=2),
+            bound_ms=index_bound_bytes(px, q_np, name)
+            / (PEAK_HBM_TBS * 1e12) * 1e3,
+            library_ms=device_ms(lib, device, reps=10) if lib else None)
+    return out
+
+
+def phase_index(device, seed: int, n_keys: int, n_queries: int) -> dict:
+    """The per-index path on each dataset: ``LearnedIndex.lookup`` (one
+    K2-or-K3 launch and one K4 launch a call) against searchsorted, the
+    host ``backend="numpy"`` beside it, and each kernel timed on the
+    dataset's own launch; then the variant matrix."""
+    import torch
+    from repro_torch.core import LearnedIndex
+    from repro_torch.data import generate
+    from repro_torch.kernels import bounded_search as BS
+    from repro_torch.kernels import segment_lookup as SEG
+    from repro_torch.kernels.keys import to_biased
+    if n_keys < INDEX_KEYS:
+        emit("reduced", index_keys=n_keys, of=INDEX_KEYS)
+    rng = np.random.default_rng(seed + 3)
+    cuda = device.type == "cuda"
+    names = {"radix": "radix_segment_lookup", "cht": "cht_segment_lookup",
+             "probe": "bounded_search"}
+    launches = dict.fromkeys(names.values(), 0)
+    timed: dict = {n: [] for n in names.values()}
+    matrix_px = None
+    for ds in INDEX_DATASETS:
+        keys = generate(ds, n_keys, seed)
+        t0 = time.perf_counter()
+        idx = LearnedIndex.build(keys, 64, device=device)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx.warmup()                       # planes upload, one lookup
+        warm_s = time.perf_counter() - t0
+        dp = idx.backend_impl()
+        kind = dp.planes.kind
+        q = make_queries(keys, n_queries, rng)
+        want = np.searchsorted(keys, q, "left")
+        # ---- the main path: counts at 0 just before, read just after
+        SEG.launches = BS.launches = 0
+        secs = []
+        for i in range(INDEX_LOOKUPS):
+            t0 = time.perf_counter()
+            got = idx.lookup(q)
+            secs.append(time.perf_counter() - t0)
+            check(np.array_equal(got, want),
+                  f"{ds} lookup {i}: "
+                  f"{int(np.count_nonzero(got != want))} ranks differ "
+                  f"from searchsorted")
+        seg_n, probe_n = SEG.launches, BS.launches
+        # ---- end of the main path
+        if cuda:
+            check(seg_n == probe_n == INDEX_LOOKUPS,
+                  f"{ds}: {seg_n} segment and {probe_n} probe launches for "
+                  f"{INDEX_LOOKUPS} lookups (want one each a lookup)")
+        launches[names[kind]] += seg_n
+        launches[names["probe"]] += probe_n
+        t0 = time.perf_counter()
+        host = idx.lookup(q, backend="numpy")
+        host_s = time.perf_counter() - t0
+        check(np.array_equal(host, want),
+              f"{ds}: backend='numpy' differs from searchsorted on "
+              f"{int(np.count_nonzero(host != want))} queries")
+        qd = torch.from_numpy(to_biased(q)).to(device)
+        base = SEG.window_base(dp.planes, qd)
+        times = index_times(dp, idx.plex, qd, q, base, device)
+        for name, t in times.items():
+            timed[name].append(t)
+        emit("index", dataset=ds, keys=n_keys, queries=int(q.size),
+             layer=kind, spline_mode=dp.planes.static["mode"],
+             probe=BS.DEFAULT_PROBE, window=dp.planes.window,
+             n_spline=dp.planes.sk.numel(), build_s=build_s,
+             warmup_s=warm_s, segment_launches=seg_n,
+             probe_launches=probe_n, lookups=INDEX_LOOKUPS,
+             lookups_per_s=INDEX_LOOKUPS * q.size / sum(secs),
+             lookup_ms=[s_ * 1e3 for s_ in secs],
+             numpy_lookups_per_s=q.size / host_s,
+             matches_searchsorted=True, kernels=times)
+        if ds == "amzn":
+            matrix_px = (idx.plex, q)
+            emit("index_profile", dataset=ds,
+                 top_tottime_ms=profile_request(idx, q))
+        del idx, dp, qd, base
+    if cuda:
+        for name, n in launches.items():
+            check(n > 0, f"{name} made no launch on the per-index path")
+    matrix = phase_index_matrix(device, *matrix_px)
+    out = {}
+    for name, rows in timed.items():
+        if not rows:
+            continue
+        # times: the mean over the datasets this kernel served
+        out[name] = {k: (float(np.mean([r[k] for r in rows]))
+                         if rows[0][k] is not None else None)
+                     for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        out[name].update(launches=launches[name], max_abs_err=max(
+            [r["max_abs_err"] for r in rows] + [matrix["max_abs_err"][name]]))
+    emit("index_summary", kernels=out)
+    return out
+
+
+def phase_index_matrix(device, px, q_np) -> dict:
+    """Both layers forced on one dataset, crossed with both spline search
+    modes and both probe forms: each kernel's output equals its plain
+    version's on the card (window bases for K2/K3, indices for K4), and
+    the ranks equal searchsorted."""
+    import torch
+    from repro_torch.kernels import bounded_search as BS
+    from repro_torch.kernels import segment_lookup as SEG
+    from repro_torch.kernels.keys import to_biased
+    from repro_torch.kernels.ops import DevicePlex
+    from repro_torch.kernels.planes import finalize_indices
+    qd = torch.from_numpy(to_biased(q_np)).to(device)
+    want = np.searchsorted(px.keys, q_np, "left")
+    err = {"radix_segment_lookup": 0, "cht_segment_lookup": 0,
+           "bounded_search": 0}
+    cases = 0
+    for kind in ("radix", "cht"):
+        fpx = _forced([px], kind)[0]
+        dp = DevicePlex.from_plex(fpx, device=device)
+        pp = dp.planes
+        check(pp.kind == kind, f"forced {kind} layer")
+        seg_name = f"{kind}_segment_lookup"
+        for mode in ("count", "bisect"):
+            pp.static["mode"] = mode
+            base = SEG.window_base(pp, qd)
+            base_plain = chunked(lambda c: SEG.window_base_plain(pp, c), qd)
+            e = int((base.long() - base_plain.long()).abs().max())
+            err[seg_name] = max(err[seg_name], e)
+            seg_ms = device_ms(lambda: SEG.window_base(pp, qd), device)
+            for probe in ("count", "bisect"):
+                got = BS.bounded_search(pp.dk, qd, base, window=pp.window,
+                                        mode=probe)
+                plain = chunked(lambda c, b: BS.probe_lower_bound(
+                    pp.dk, c, b.long(), window=pp.window, mode=probe),
+                    qd, base).int()
+                pe = int((got.long() - plain.long()).abs().max())
+                err["bounded_search"] = max(err["bounded_search"], pe)
+                ranks = finalize_indices(got, q_np.size, pp.n_real)
+                row = dict(layer=kind, spline_mode=mode, probe=probe,
+                           window=pp.window,
+                           search=(pp.static.get("max_win")
+                                   or pp.static["delta"] + 1),
+                           segment_max_abs_err=e, probe_max_abs_err=pe,
+                           matches_searchsorted=bool(
+                               np.array_equal(ranks, want)),
+                           segment_ms=seg_ms,
+                           probe_ms=device_ms(lambda: BS.bounded_search(
+                               pp.dk, qd, base, window=pp.window,
+                               mode=probe), device))
+                emit("index_matrix", **row)
+                cases += 1
+                check(e == 0 and pe == 0 and row["matches_searchsorted"],
+                      f"index variant failed: {row}")
+        del dp, pp
+    return dict(cases=cases, max_abs_err=err)
+
+
 # ----------------------------------------------------------------- main ----
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--serve-keys", type=int, default=SERVE_KEYS)
+    ap.add_argument("--index-keys", type=int, default=INDEX_KEYS)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -484,6 +724,16 @@ def main(argv=None) -> int:
     kern = phase_kernel(device, args.seed, KERNEL_KEYS, QUERIES)
     serve = phase_serve(device, args.seed, args.serve_keys, QUERIES)
     phase_merge(device, args.seed, KERNEL_KEYS, QUERIES)
+    index = phase_index(device, args.seed, args.index_keys, QUERIES)
+    csrc = "src/repro_torch/kernels/csrc/"
+    replaces = {
+        "radix_segment_lookup":
+            "src/repro/kernels/plex_segment_lookup.py:302",
+        "cht_segment_lookup": "src/repro/kernels/plex_segment_lookup.py:327",
+        "bounded_search": "src/repro/kernels/bounded_search.py:36"}
+    sources = {"radix_segment_lookup": csrc + "segment_lookup.cu",
+               "cht_segment_lookup": csrc + "segment_lookup.cu",
+               "bounded_search": csrc + "bounded_search.cu"}
     print(json.dumps({"kernels": [{
         "name": "stacked_lookup", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stacked_lookup.cu",
@@ -492,7 +742,13 @@ def main(argv=None) -> int:
         "max_abs_err": max(kern["max_abs_err"], serve["max_abs_err"]),
         "ms": serve["kernel_ms"], "plain_ms": serve["plain_ms"],
         "bound_ms": serve["bound_ms"], "bound_by": "bytes",
-        "library_ms": serve["library_ms"], "matches_plain": True}]}),
+        "library_ms": serve["library_ms"], "matches_plain": True}] + [{
+        "name": name, "route": "cuda", "source": sources[name],
+        "replaces": replaces[name], "launches": k["launches"],
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": "bytes", "library_ms": k["library_ms"],
+        "matches_plain": True} for name, k in index.items()]}),
         flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {

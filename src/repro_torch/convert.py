@@ -1,8 +1,11 @@
-"""Carry index state across: a port ``Snapshot`` from plain arrays.
+"""Carry index state across: a port ``PLEX`` or ``Snapshot`` from plain
+arrays.
 
-``snapshot_from_arrays`` takes, as numpy arrays, what a sharded PLEX snapshot
-holds — the key array, the shard offsets, and per shard the spline, the radix
-layer and the tuning — and assembles the port's ``Snapshot`` with no rebuild.
+``plex_from_arrays`` takes one index's key array, spline, radix layer and
+tuning; ``snapshot_from_arrays`` takes, as numpy arrays, what a sharded PLEX
+snapshot holds — the key array, the shard offsets, and per shard the spline,
+the radix layer and the tuning — and assembles the port's ``Snapshot``.
+Neither rebuilds anything.
 So an index built elsewhere (the reference package, or a persisted
 generation once the port reads them) is served by the port as it is.
 
@@ -45,6 +48,25 @@ def _layer(spec: Mapping[str, Any], n_spline: int):
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
+def plex_from_arrays(keys: np.ndarray, spline_keys: np.ndarray,
+                     spline_positions: np.ndarray, layer: Mapping[str, Any],
+                     tuning: Mapping[str, Any], eps: int) -> PLEX:
+    """One port ``PLEX`` over these arrays (``layer`` and ``tuning`` as in
+    the module docstring), with no rebuild: a ``LearnedIndex(plex=...)``
+    over it gives the same window bases and ranks as the index the arrays
+    came from."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    sk = np.ascontiguousarray(spline_keys, dtype=np.uint64)
+    sp = np.ascontiguousarray(spline_positions, dtype=np.int64)
+    if sk.size != sp.size or sk.size == 0:
+        raise ValueError("spline keys and positions must be non-empty and "
+                         "of one length")
+    spline = Spline(keys=sk, positions=sp, eps=int(eps), n_keys=keys.size)
+    return PLEX(spline=spline, layer=_layer(layer, sk.size),
+                tuning=TuneResult(**tuning), keys=keys, eps=int(eps),
+                stats=BuildStats(0.0, 0.0, 0.0, 0.0))
+
+
 def snapshot_from_arrays(keys: np.ndarray, offsets: np.ndarray,
                          shards: Sequence[Mapping[str, Any]], eps: int,
                          device=None) -> Snapshot:
@@ -55,14 +77,8 @@ def snapshot_from_arrays(keys: np.ndarray, offsets: np.ndarray,
     if len(shards) != offsets.size or offsets[0] != 0:
         raise ValueError("one shard per offset, starting at 0")
     ends = np.append(offsets[1:], keys.size)
-    plexes = []
-    for lo, hi, sh in zip(offsets, ends, shards):
-        sk = np.ascontiguousarray(sh["spline_keys"], dtype=np.uint64)
-        sp = np.ascontiguousarray(sh["spline_positions"], dtype=np.int64)
-        spline = Spline(keys=sk, positions=sp, eps=int(eps),
-                        n_keys=int(hi - lo))
-        plexes.append(PLEX(spline=spline, layer=_layer(sh["layer"], sk.size),
-                           tuning=TuneResult(**sh["tuning"]),
-                           keys=keys[lo:hi], eps=int(eps),
-                           stats=BuildStats(0.0, 0.0, 0.0, 0.0)))
+    plexes = [plex_from_arrays(keys[lo:hi], sh["spline_keys"],
+                               sh["spline_positions"], sh["layer"],
+                               sh["tuning"], eps)
+              for lo, hi, sh in zip(offsets, ends, shards)]
     return Snapshot(keys, eps, offsets, plexes, device=device)

@@ -1,19 +1,23 @@
-"""PLEX host build (numpy), the port's copy of ``repro.core``'s build path:
+"""PLEX host build and host lookup (numpy), the port's copy of
+``repro.core``:
 
     build_spline -> tune -> build_radix_table | build_cht -> PLEX
 
-``Snapshot`` shards the result and hands the device pipeline its planes.
+``LearnedIndex`` looks one PLEX up on the device or the host; ``Snapshot``
+shards the result and hands the serving pipeline its planes.
 """
 from .autotune import TuneResult, cht_cost_model, radix_cost_model, tune
 from .cht import CHT, adjacent_lcp, bit_length_u64, build_cht
-from .index import SHARD_MAX_KEYS, Snapshot, shard_offsets
+from .index import BACKENDS, SHARD_MAX_KEYS, LearnedIndex, Snapshot, \
+    shard_offsets
 from .plex import PLEX, BuildStats, bounded_lower_bound, build_plex, \
     freeze_arrays
 from .radix_table import RadixTable, build_radix_table, range_bits
 from .spline import Spline, build_spline
 
 __all__ = [
-    "BuildStats", "CHT", "PLEX", "RadixTable", "SHARD_MAX_KEYS", "Snapshot",
+    "BACKENDS", "BuildStats", "CHT", "LearnedIndex", "PLEX", "RadixTable",
+    "SHARD_MAX_KEYS", "Snapshot",
     "Spline", "TuneResult", "adjacent_lcp", "bit_length_u64",
     "bounded_lower_bound", "build_cht", "build_plex", "build_radix_table",
     "build_spline", "cht_cost_model", "freeze_arrays", "radix_cost_model",

@@ -1,8 +1,8 @@
 """Compact Hist-Tree (CHT) — PLEX's multi-level radix layer.
 
-Host build of the port, identical to ``repro.core.cht`` (same cells from
-the same spline keys). The descent itself runs on the device, in
-``repro_torch.kernels.stacked_lookup``.
+Host build and host descent of the port, identical to ``repro.core.cht``
+(same cells from the same spline keys). The device descends in
+``repro_torch.kernels.stacked_lookup`` and ``segment_lookup``.
 
 A pointer-free radix tree over the (unique, sorted) spline keys, built
 *directly* from the key array level-by-level (the paper's contribution over
@@ -71,6 +71,23 @@ class CHT:
     @property
     def size_bytes(self) -> int:
         return 4 * self.cells.size
+
+    def lookup(self, q: np.ndarray) -> np.ndarray:
+        """q~ per query: true predecessor index in [q~, q~ + delta]."""
+        q = np.asarray(q, dtype=np.uint64)
+        fanout = 1 << self.r
+        node = np.zeros(q.shape, dtype=np.int64)
+        out = np.zeros(q.shape, dtype=np.int64)
+        done = np.zeros(q.shape, dtype=bool)
+        for level in range(self.max_depth + 1):
+            bins = _extract_bins(q, level * self.r, self.r)
+            cell = self.cells[node * fanout + bins]
+            is_child = (cell & CHILD_FLAG) != 0
+            val = (cell & VALUE_MASK).astype(np.int64)
+            out = np.where(~done & ~is_child, val, out)
+            done |= ~is_child
+            node = np.where(is_child & ~done, val, node)
+        return out
 
 
 def build_cht(keys: np.ndarray, r: int, delta: int) -> CHT:

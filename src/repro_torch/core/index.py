@@ -1,20 +1,35 @@
-"""Snapshot — the immutable sharded index the device pipeline serves.
+"""LearnedIndex + Snapshot — lookup dispatch and the immutable sharded index.
 
-The port's counterpart of ``repro.core.index.Snapshot``: the sorted key
-array, the per-shard frozen ``PLEX`` indexes (shard boundaries snapped to
-first occurrences), the shard-minima routing plane, and — lazily — the fused
-shard-major stacked device layout, cached per configuration. Once built a
-snapshot never changes (every host array is frozen), so an updatable service
-can swap in a new one with a single reference assignment while readers of
-the old one finish undisturbed.
+``LearnedIndex`` is the port's counterpart of ``repro.core.index.
+LearnedIndex``: one PLEX over one sorted key array, looked up through one of
+two backends, resolved by the plain mapping ``BACKENDS`` (the reference's
+registry is a later slice of the port):
+
+* ``"cuda"`` (the default) — ``kernels.ops.DevicePlex`` on the index's
+  device: the K2/K3 segment lookup and the K4 probe, one launch each per
+  call on a CUDA card (the plain PyTorch pipeline on ``device="cpu"``);
+* ``"numpy"`` — the host ``PLEX.lookup``.
+
+    idx = LearnedIndex.build(keys, eps=64)      # device defaults to CUDA
+    idx.lookup(q)                               # "cuda"
+    idx.lookup(q, backend="numpy")
+
+``Snapshot`` is the port's counterpart of ``repro.core.index.Snapshot``: the
+sorted key array, the per-shard frozen ``PLEX`` indexes (shard boundaries
+snapped to first occurrences), the shard-minima routing plane, and — lazily
+— the fused shard-major stacked device layout, cached per configuration.
+Once built a snapshot never changes (every host array is frozen), so an
+updatable service can swap in a new one with a single reference assignment
+while readers of the old one finish undisturbed.
 
 The build is serial here; the process-pool build of the reference
 (``repro.core.parallel_build``) is a later slice of the port.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 
@@ -23,6 +38,97 @@ from .plex import PLEX, build_plex, freeze_arrays
 
 # keep each shard's float32 rank plane well inside the 2^24 limit
 SHARD_MAX_KEYS = 1 << 23
+# backend name -> whether it serves from the host PLEX (no device impl)
+BACKENDS = {"cuda": False, "numpy": True}
+
+
+def _check_backend(name: str) -> bool:
+    """Whether ``name`` is a host backend; unknown names raise."""
+    try:
+        return BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; registered backends: "
+            f"{', '.join(repr(n) for n in BACKENDS)}") from None
+
+
+@dataclasses.dataclass
+class LearnedIndex:
+    """One PLEX with lazily built, cached device impls (see the module
+    docstring). ``device`` is resolved at construction: the CUDA card unless
+    the caller passes another."""
+    plex: PLEX
+    block: int = 512
+    device: Any = None
+    _impls: dict = dataclasses.field(default_factory=dict, repr=False)
+    _stacked_impls: dict = dataclasses.field(default_factory=dict,
+                                             repr=False)
+
+    def __post_init__(self) -> None:
+        if self.block % 128 != 0 or self.block <= 0:
+            raise ValueError("block must be a positive multiple of 128")
+        self.device = resolve_device(self.device)
+
+    @classmethod
+    def build(cls, keys: np.ndarray, eps: int, *, block: int = 512,
+              device=None, **build_kw) -> "LearnedIndex":
+        """Build the underlying PLEX (host-side, the paper's single-pass
+        build) and wrap it for dispatch."""
+        return cls(plex=build_plex(keys, eps, **build_kw), block=block,
+                   device=device)
+
+    # -- passthrough metadata ------------------------------------------------
+    @property
+    def keys(self) -> np.ndarray:
+        return self.plex.keys
+
+    @property
+    def eps(self) -> int:
+        return self.plex.eps
+
+    @property
+    def size_bytes(self) -> int:
+        return self.plex.size_bytes
+
+    # -- dispatch ------------------------------------------------------------
+    def backend_impl(self, backend: str | None = None):
+        """The (lazily constructed, cached) implementation for ``backend``:
+        the host ``PLEX`` for ``"numpy"``, a ``DevicePlex`` for ``"cuda"``
+        (the default)."""
+        backend = backend or "cuda"
+        if _check_backend(backend):
+            return self.plex
+        impl = self._impls.get(backend)
+        if impl is None:
+            from ..kernels.ops import DevicePlex
+            impl = DevicePlex.from_plex(self.plex, block=self.block,
+                                        device=self.device)
+            self._impls[backend] = impl
+        return impl
+
+    def stacked_impl(self, *, probe: str | None = None):
+        """The single-shard stacked impl (``StackedTorchPlex``, the serving
+        path's fused kernel) of this index on its device, cached per probe
+        mode. A lone shard always unifies, so this is never ``None``."""
+        impl = self._stacked_impls.get(probe)
+        if impl is None:
+            from ..kernels.stacked_lookup import StackedTorchPlex
+            impl = StackedTorchPlex.from_plexes(
+                [self.plex], np.zeros(1, dtype=np.int64), device=self.device,
+                block=self.block, probe=probe)
+            self._stacked_impls[probe] = impl
+        return impl
+
+    def warmup(self, backend: str | None = None) -> None:
+        """Build the backend's impl and run one block-sized lookup (on a
+        card this also builds and loads the kernels)."""
+        impl = self.backend_impl(backend)
+        if impl is not self.plex:
+            impl.lookup(self.plex.keys[:1])
+
+    def lookup(self, q: np.ndarray, backend: str | None = None) -> np.ndarray:
+        """First-occurrence index per query key (``PLEX.lookup`` contract)."""
+        return self.backend_impl(backend).lookup(q)
 
 
 def shard_offsets(keys: np.ndarray, n_shards: int) -> np.ndarray:

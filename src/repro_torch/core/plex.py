@@ -5,10 +5,14 @@ build the chosen radix layer (flat radix table or CHT) over the spline keys.
 The only user-facing hyperparameter is ``eps``; the index is guaranteed to be
 at most twice the spline size.
 
-This is the port's copy of ``repro.core.plex``'s build half. Lookups run on
-the device (``repro_torch.kernels.stacked_lookup``); the host keeps only the
+This is the port's copy of ``repro.core.plex``: the build, and the host
+lookup (``PLEX.lookup``, the ``"numpy"`` backend of ``LearnedIndex``) over the
 fixed-trip ``bounded_lower_bound`` search, the branch-free form every device
-search of the pipeline follows.
+search follows. Device lookups run in ``repro_torch.kernels``. Two faults of
+the reference's host lookup are not copied: its float64 interpolation of
+absolute keys (ROADMAP queue 3, R1; see ``spline.py``) and its int64 cast of
+a prediction past the last key, which overflows for sparse splines (R2; the
+port clips the prediction to the key range first).
 """
 from __future__ import annotations
 
@@ -100,6 +104,40 @@ class PLEX:
         freeze_arrays(self.keys, self.spline.keys, self.spline.positions,
                       layer_arr)
         return self
+
+    def segment_window(self, q: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Inclusive candidate window for the spline-segment search."""
+        if isinstance(self.layer, RadixTable):
+            return self.layer.lookup(q)
+        qt = self.layer.lookup(q)
+        hi = np.minimum(qt + self.layer.delta, self.spline.keys.size - 1)
+        return qt, hi
+
+    def predict(self, q: np.ndarray) -> np.ndarray:
+        """Approximate rank with |predict - rank| <= eps for present keys."""
+        q = np.asarray(q, dtype=np.uint64)
+        lo, hi = self.segment_window(q)
+        seg = bounded_lower_bound(self.spline.keys, q, lo, hi, side="right")
+        seg = np.clip(seg, 0, self.spline.keys.size - 2)
+        return self.spline.predict_in_segment(q, seg)
+
+    def lookup(self, q: np.ndarray) -> np.ndarray:
+        """Index of the first occurrence of each (present) query key.
+
+        For absent keys returns the lower bound (first index with key >= q)
+        clamped to the eps window — exact whenever the window is conclusive,
+        which it always is for present keys (the paper's positive-lookup
+        contract). The prediction is clipped to ``[0, n - 1]`` before its
+        int64 cast: the window moves only where the reference's cast
+        overflows (a key far past the end), and past the end it is then
+        conclusive.
+        """
+        q = np.asarray(q, dtype=np.uint64)
+        n = self.keys.size
+        pred = np.clip(self.predict(q), 0, n - 1)
+        lo = np.clip(np.floor(pred).astype(np.int64) - self.eps, 0, n - 1)
+        hi = np.clip(np.ceil(pred).astype(np.int64) + self.eps, 0, n - 1)
+        return bounded_lower_bound(self.keys, q, lo, hi, side="left")
 
 
 def build_plex(keys: np.ndarray, eps: int, *,

@@ -1,7 +1,8 @@
 """Flat radix table over spline keys (RadixSpline's layer; PLEX's fallback).
 
-Host build of the port, identical to ``repro.core.radix_table``; the table
-is read on the device by ``repro_torch.kernels.stacked_lookup``.
+Host build and host lookup of the port, identical to
+``repro.core.radix_table``; the table is read on the device by
+``repro_torch.kernels.stacked_lookup`` and ``segment_lookup``.
 
 ``table[p]`` = index of the first spline key whose prefix is >= p, where the
 prefix is the top ``r`` bits of ``key - min_key`` within the key range's
@@ -35,6 +36,18 @@ class RadixTable:
     def max_window(self) -> int:
         d = np.diff(self.table.astype(np.int64))
         return int(d.max()) + 1 if d.size else 1
+
+    def prefixes(self, q: np.ndarray) -> np.ndarray:
+        q = np.asarray(q, dtype=np.uint64)
+        rel = np.where(q > self.min_key, q - self.min_key, np.uint64(0))
+        return (rel >> np.uint64(self.shift)).astype(np.int64)
+
+    def lookup(self, q: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(lo, hi) inclusive window of candidate predecessor indices."""
+        p = np.clip(self.prefixes(q), 0, (1 << self.r) - 1)
+        lo = np.maximum(self.table[p].astype(np.int64) - 1, 0)
+        hi = np.maximum(self.table[p + 1].astype(np.int64) - 1, 0)
+        return lo, hi
 
 
 def range_bits(keys: np.ndarray) -> int:

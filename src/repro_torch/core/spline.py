@@ -2,10 +2,13 @@
 
 Host build of the port, kept bit-identical to ``repro.core.spline`` so both
 packages produce the same spline points from the same keys. The float64
-interpolation below is a *build* detail (the repair pass); no lookup path of
-the port predicts in float64 (above 2^53 neighbouring keys collapse to one
-double, ROADMAP queue 3, R1) — lookups interpolate in float32 on the exact
-64-bit key difference (``repro_torch.kernels.stacked_lookup``).
+interpolation of ``_interp_f64`` is a *build* detail (the repair pass, kept
+as the reference has it). The host lookup (``Spline.predict``) takes the
+exact 64-bit key difference before it converts to float64, where the
+reference converts each absolute key first (above 2^53 neighbouring keys
+collapse to one double, ROADMAP queue 3, R1): below 2^53 both give the same
+prediction bit for bit. The device interpolates in float32 on the same exact
+difference (``repro_torch.kernels.segment_lookup``).
 
 Faithful to the paper: the spline is a subset of CDF points (key, rank) chosen
 greedily in one pass (Neumann & Michel's corridor algorithm, the same one
@@ -133,6 +136,36 @@ class Spline:
     def size_bytes(self) -> int:
         # 16 B per spline point (u64 key + 8 B position), paper convention.
         return 16 * self.keys.size
+
+    def segment_of(self, q: np.ndarray) -> np.ndarray:
+        q = np.asarray(q, dtype=np.uint64)
+        return np.clip(np.searchsorted(self.keys, q, side="right") - 1,
+                       0, self.keys.size - 2)
+
+    def predict(self, q: np.ndarray) -> np.ndarray:
+        """Approximate rank: |predict - rank of first occurrence| <= eps."""
+        q = np.asarray(q, dtype=np.uint64)
+        return self.predict_in_segment(q, self.segment_of(q))
+
+    def predict_in_segment(self, q: np.ndarray,
+                           seg: np.ndarray) -> np.ndarray:
+        """float64 interpolation on segment ``seg``; unclipped, so a query
+        outside the segment extrapolates, as in the reference."""
+        q = np.asarray(q, dtype=np.uint64)
+        x0 = self.keys[seg]
+        x1 = self.keys[seg + 1]
+        y0 = self.positions[seg].astype(np.float64)
+        y1 = self.positions[seg + 1].astype(np.float64)
+        dx = _diff_f64(x1, x0)
+        t = np.where(x1 > x0, _diff_f64(q, x0) / np.maximum(dx, 1.0), 0.0)
+        return y0 + t * (y1 - y0)
+
+
+def _diff_f64(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``a - b`` of uint64 keys as float64, rounded once from the exact
+    64-bit difference (signed: ``a < b`` gives a negative value)."""
+    return np.where(a >= b, (a - b).astype(np.float64),
+                    -(b - a).astype(np.float64))
 
 
 def build_spline(keys: np.ndarray, eps: int) -> Spline:

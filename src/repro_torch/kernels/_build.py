@@ -37,6 +37,18 @@ _SIGNATURES = {
         "plex_error_string": ([ctypes.c_int], ctypes.c_char_p),
         "plex_params_size": ([], ctypes.c_int),
     },
+    "segment_lookup": {
+        "plex_segment_lookup": ([_C_VOID_P, ctypes.c_int, ctypes.c_int,
+                                 _C_VOID_P], ctypes.c_int),
+        "segment_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        "segment_params_size": ([], ctypes.c_int),
+    },
+    "bounded_search": {
+        "plex_bounded_search": ([_C_VOID_P, ctypes.c_int, _C_VOID_P],
+                                ctypes.c_int),
+        "bounded_search_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        "bounded_search_params_size": ([], ctypes.c_int),
+    },
 }
 
 _lock = threading.Lock()
@@ -123,3 +135,31 @@ def load_library(name: str) -> ctypes.CDLL:
                 f.restype = res
             _loaded[name] = lib
         return lib
+
+
+def device_ptr(name: str, t, dtype, device) -> int:
+    """Device pointer of a contiguous 1-D tensor a kernel reads or writes,
+    after the checks the kernel cannot make itself."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the launch on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D tensor")
+    return t.data_ptr()
+
+
+def check_params_size(lib: ctypes.CDLL, fn: str, struct) -> None:
+    """Refuse a launch whose ctypes parameter block does not match the C
+    struct it mirrors (``fn`` returns the struct's size)."""
+    if getattr(lib, fn)() != ctypes.sizeof(struct):
+        raise RuntimeError(f"{struct.__name__} does not match its C struct "
+                           f"({fn})")
+
+
+def check_launch(lib: ctypes.CDLL, fn: str, err: int, what: str) -> None:
+    """Raise with the CUDA error string when a launch returned an error
+    (``fn`` is the library's error-string function)."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({getattr(lib, fn)(err)!r})")

@@ -26,15 +26,13 @@
 // width of them. The Pallas kernel loaded every plane as a whole VMEM block;
 // that was a TPU limit and is not carried over: planes stay in global memory.
 //
-// Bit-exactness with the reference: the interpolation uses __fsub_rn,
-// __fmul_rn, __fdiv_rn and __fadd_rn so nothing contracts into an FMA or a
-// fast division, and a u64 difference becomes float32 exactly as
-// repro/kernels/pairs.py::pair_to_f32 does it: f32(hi) * 2^32 + f32(lo).
-// Keys are biased int64 (k ^ 2^63): signed order is the unsigned order, and
-// the u64 difference of two keys is their wrapping int64 difference.
+// Bit-exactness with the reference: the device functions of plex_device.cuh
+// (shared with K2-K4) round the interpolation exactly as the reference does.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "plex_device.cuh"
 
 struct PlexParams {
   // pointers (field order mirrors _Params in stacked_lookup.py)
@@ -76,17 +74,6 @@ struct PlexParams {
 
 enum { kRadix = 0, kCht = 1 };
 
-// f32(hi) * 2^32 + f32(lo), each step rounded to nearest (pair_to_f32)
-__device__ __forceinline__ float u64_to_f32_pair(uint64_t d) {
-  const float hi = __uint2float_rn(static_cast<uint32_t>(d >> 32));
-  const float lo = __uint2float_rn(static_cast<uint32_t>(d));
-  return __fadd_rn(__fmul_rn(hi, 4294967296.0f), lo);
-}
-
-__device__ __forceinline__ uint64_t key_diff(int64_t a, int64_t b) {
-  return static_cast<uint64_t>(a) - static_cast<uint64_t>(b);
-}
-
 template <int KIND, bool SPLINE_BISECT, bool PROBE_BISECT, bool FOLD>
 __global__ void __launch_bounds__(256)
 stacked_lookup_kernel(const PlexParams p) {
@@ -107,98 +94,37 @@ stacked_lookup_kernel(const PlexParams p) {
   // 2. window [lo, hi] of local spline indices
   int32_t lo, hi;
   if (KIND == kRadix) {
-    const int64_t lm = __ldg(p.lmin + s);
-    const uint64_t d = (q < lm) ? 0ull : key_diff(q, lm);
-    // low 32 bits of the shifted difference, cast to int32 (may go negative)
-    const int32_t pfx = static_cast<int32_t>(static_cast<uint32_t>(d >> __ldg(p.shift + s)));
-    const int32_t pp = min(max(pfx, 0), __ldg(p.p_max + s));
-    const int64_t t = static_cast<int64_t>(__ldg(p.table_off + s)) + pp;
-    lo = max(__ldg(p.table + t) - 1, 0);
-    hi = max(__ldg(p.table + t + 1) - 1, 0);
+    table_window(p.table + __ldg(p.table_off + s),
+                 radix_prefix_wrapped(q, __ldg(p.lmin + s), __ldg(p.shift + s),
+                                      __ldg(p.p_max + s)),
+                 lo, hi);
   } else {
-    // bins come from the unbiased key: (k << lvl*r) >> (64 - r)
-    const uint64_t k = static_cast<uint64_t>(q) ^ 0x8000000000000000ull;
-    const int64_t coff = __ldg(p.cells_off + s);
-    int64_t node = 0;
-    int32_t val = 0;
-    for (int32_t lvl = 0; lvl < p.levels; ++lvl) {
-      const uint32_t bin = static_cast<uint32_t>((k << (lvl * p.r)) >> (64 - p.r));
-      const uint32_t cell = __ldg(p.cells + coff + (node << p.r) + bin);
-      val = static_cast<int32_t>(cell & 0x7FFFFFFFu);
-      if (!(cell >> 31)) break;  // terminal: the rounds left are no-ops
-      node = val;
-      val = 0;
-    }
-    lo = val;
-    hi = min(val + __ldg(p.delta + s), ns - 1);
+    lo = cht_descend(p.cells + __ldg(p.cells_off + s), q, p.r, p.levels);
+    hi = min(lo + __ldg(p.delta + s), ns - 1);
   }
 
   // 3. spline predecessor: largest i in [lo, hi] with sk[i] <= q
-  int32_t seg;
-  if (!SPLINE_BISECT) {
-    const int32_t last = min(hi - lo, p.search_width - 1);
-    int32_t cnt = 0;
-    for (int32_t j = 0; j <= last; ++j)
-      cnt += (p.sk[srow + min(lo + j, ns - 1)] <= q);
-    seg = lo + max(cnt - 1, 0);
-  } else {
-    for (int32_t t = 0; t < p.search_trips; ++t) {
-      const int32_t mid = (lo + hi + 1) >> 1;
-      const bool go = p.sk[srow + min(mid, ns - 1)] <= q;
-      lo = go ? mid : lo;
-      hi = go ? hi : mid - 1;
-    }
-    seg = lo;
-  }
+  const int32_t seg = spline_predecessor<SPLINE_BISECT>(
+      p.sk + srow, ns, q, lo, hi, p.search_width, p.search_trips);
 
-  // 4. float32 interpolation at the clipped segment (min(max(.)) order)
-  const int64_t g = srow + min(max(seg, 0), ns - 2);
-  const int64_t x0 = p.sk[g];
-  const int64_t x1 = p.sk[g + 1];
-  const float y0 = p.spos[g];
-  const float y1 = p.spos[g + 1];
-  const float dx = fmaxf(u64_to_f32_pair(key_diff(x1, x0)), 1.0f);
-  const float dq = (q < x0) ? 0.0f : u64_to_f32_pair(key_diff(q, x0));
-  const float tt = fminf(fmaxf(__fdiv_rn(dq, dx), 0.0f), 1.0f);
-  const float pred = __fadd_rn(y0, __fmul_rn(tt, __fsub_rn(y1, y0)));
-  int32_t base = static_cast<int32_t>(floorf(pred)) - p.eps_eff;
-  base = min(max(base, 0), static_cast<int32_t>(p.n_data_max - p.window));
+  // 4. float32 interpolation -> window base
+  const int32_t base = segment_base(p.sk + srow, p.spos + srow, ns, q, seg,
+                                    p.eps_eff,
+                                    static_cast<int32_t>(p.n_data_max - p.window));
 
   // 5. eps-window probe: first index in [base, base + window] with key >= q
   const int64_t drow = static_cast<int64_t>(s) * p.n_data_max;
-  int64_t got;
-  if (!PROBE_BISECT) {
-    const int64_t* w = p.dk + drow + base;
-    int32_t c = 0;
-    for (int32_t j = 0; j < p.window; ++j) c += (w[j] < q);
-    got = base + c;
-  } else {
-    int64_t plo = drow + base;
-    int64_t phi = drow + base + p.window - 1;
-    for (int32_t t = 0; t < p.probe_trips; ++t) {
-      const int64_t mid = (plo + phi) >> 1;
-      const bool ge = !(p.dk[mid] < q);
-      phi = ge ? mid : phi;
-      plo = ge ? plo : mid + 1;
-    }
-    got = plo - drow;
-  }
+  const int64_t got = window_lower_bound<PROBE_BISECT>(
+      p.dk + drow, q, base, p.window, p.probe_trips);
 
   // 6. clamp to the shard's real keys, add its global row offset
   const int64_t nr = __ldg(p.n_real + s);
   int32_t res = static_cast<int32_t>(got < nr ? got : nr) + __ldg(p.row_off + s);
 
   // 7. merged lookup: + cum0[# delta keys < q]
-  if (FOLD) {
-    int32_t dlo = 0, dhi = p.cap - 1;
-    for (int32_t t = 0; t < p.delta_trips; ++t) {
-      const int32_t mid = (dlo + dhi) >> 1;
-      const bool ge = !(__ldg(p.dkeys + mid) < q);
-      dhi = ge ? mid : dhi;
-      dlo = ge ? dlo : mid + 1;
-    }
-    res += __ldg(p.dcum + dlo);
-  }
+  if (FOLD)
+    res += __ldg(p.dcum + window_lower_bound<true>(p.dkeys, q, 0, p.cap,
+                                                    p.delta_trips));
 
   p.out[i] = res;
   if (p.sid_out) p.sid_out[i] = s;

@@ -89,3 +89,15 @@ def extract_bits(b: torch.Tensor, offset: int, r: int) -> torch.Tensor:
     int64 (``(k << offset) >> (64 - r)``, the CHT bin geometry)."""
     k = b ^ torch.iinfo(torch.int64).min
     return ((k << offset) >> (64 - r)) & ((1 << r) - 1)
+
+
+def take(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather that refuses out-of-bounds indices on the CPU. A torch index
+    wraps negative values silently and a CUDA kernel would read whatever
+    lies there, where ``jnp.take`` fills; so the plain versions check every
+    gather they make in the tests."""
+    if idx.device.type == "cpu" and idx.numel() and (
+            int(idx.min()) < 0 or int(idx.max()) >= plane.numel()):
+        raise IndexError(f"gather index out of [0, {plane.numel()}): "
+                         f"[{int(idx.min())}, {int(idx.max())}]")
+    return plane[idx]

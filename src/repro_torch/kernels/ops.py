@@ -1,0 +1,60 @@
+"""``DevicePlex``: the per-index device lookup (the port of
+``repro.kernels.ops``).
+
+``DevicePlex.from_plex`` converts a host-built ``PLEX`` into ``PlexPlanes``
+on the device; ``DevicePlex.lookup`` runs the batched pipeline
+
+    pad to a block multiple -> bias -> one upload ->
+    K2 or K3 (``segment_lookup``: window bases) ->
+    K4 (``bounded_search``: the eps-window probe) -> finalize
+
+with one launch of each kernel per call on a CUDA device, whatever the
+batch size. The reference gathers the ``[B, W]`` data windows in XLA between
+its two kernels; here K4 reads the data plane itself. The reference's
+deprecated ``lookup_planes`` shim is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.plex import PLEX
+from ..device import resolve_device
+from .bounded_search import DEFAULT_PROBE, bounded_search
+from .keys import to_biased
+from .planes import PlexPlanes, build_planes, finalize_indices, pad_queries
+from .segment_lookup import window_base
+
+DEFAULT_BLOCK = 512
+
+
+@dataclasses.dataclass
+class DevicePlex:
+    """One PLEX on one device: its planes and the batch block. K4 runs in
+    its default probe form (``bounded_search.DEFAULT_PROBE``)."""
+    planes: PlexPlanes
+    block: int
+
+    @classmethod
+    def from_plex(cls, px: PLEX, *, block: int = DEFAULT_BLOCK,
+                  device=None) -> "DevicePlex":
+        """Planes of ``px`` on ``device`` (default: the CUDA card)."""
+        if block % 128 != 0 or block <= 0:
+            raise ValueError("block must be a positive multiple of 128")
+        return cls(planes=build_planes(px, resolve_device(device)),
+                   block=int(block))
+
+    def lookup(self, q: np.ndarray) -> np.ndarray:
+        """Batched device lookup; same contract as ``PLEX.lookup`` for
+        present keys (first occurrence), lower bound for absent ones."""
+        q = np.asarray(q, dtype=np.uint64)
+        if q.size == 0:
+            return np.zeros(0, dtype=np.int64)
+        pp = self.planes
+        qp, b = pad_queries(q, self.block)
+        qd = torch.from_numpy(to_biased(qp)).to(pp.device)
+        out = bounded_search(pp.dk, qd, window_base(pp, qd),
+                             window=pp.window, mode=DEFAULT_PROBE)
+        return finalize_indices(out, b, pp.n_real)

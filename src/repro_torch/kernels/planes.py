@@ -13,6 +13,10 @@ contract of the reference is kept:
 * windows at most ``COUNT_MODE_MAX`` wide search by compare-and-count;
 * spline, data and delta planes are padded with the max key.
 
+Single index (``build_planes`` -> ``PlexPlanes``, consumed by
+``ops.DevicePlex``): one spline-key plane, one rank plane, one data plane and
+the layer array (radix ``table`` or CHT ``cells``) of one PLEX.
+
 Stacked layout (multi-shard serving): per-shard planes are padded to the max
 shard size and stored flattened shard-major (``[S * n_spline_max]`` /
 ``[S * n_data_max]``), so a query routed to shard ``s`` gathers at
@@ -152,6 +156,47 @@ def _host_planes(px: PLEX) -> _HostPlanes:
                        dk=dk, n_data=hs.n_data, n_real=hs.n_real,
                        kind=hs.kind, layer_np=hs.layer_np, static=hs.static,
                        eps_eff=hs.eps_eff, window=hs.window)
+
+
+@dataclasses.dataclass
+class PlexPlanes:
+    """Device planes of one PLEX (the reference's ``PlexPlanes``)."""
+    sk: torch.Tensor          # biased int64 spline keys [n_spline]
+    spos: torch.Tensor        # float32 spline ranks [n_spline]
+    dk: torch.Tensor          # biased int64 data keys, max-key padded [n_data]
+    n_data: int               # padded length
+    n_real: int
+    kind: str                 # "radix" | "cht"
+    layer_arrays: dict[str, torch.Tensor]   # int32 "table" | int32 "cells"
+    static: dict[str, Any]
+    eps_eff: int
+    window: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.dk.device
+
+
+def build_planes(px: PLEX, device) -> PlexPlanes:
+    """Host PLEX -> ``PlexPlanes`` on ``device``. A one-point spline is
+    doubled (see ``_host_planes``), so ``n_spline >= 2``."""
+    hp = _host_planes(px)
+    if hp.kind == "radix":
+        layer = {"table": hp.layer_np["table"].astype(np.int32)}
+    else:
+        if (hp.static["levels"] - 1) * hp.static["r"] >= 64:
+            raise ValueError("CHT descends past 64 key bits")
+        # uint32 cells (top bit = child flag) reinterpreted as int32
+        layer = {"cells": hp.layer_np["cells"].astype(np.uint32)
+                 .view(np.int32)}
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return PlexPlanes(sk=put(hp.sk), spos=put(hp.spos), dk=put(hp.dk),
+                      n_data=hp.n_data, n_real=hp.n_real, kind=hp.kind,
+                      layer_arrays={k: put(v) for k, v in layer.items()},
+                      static=dict(hp.static), eps_eff=hp.eps_eff,
+                      window=hp.window)
 
 
 @dataclasses.dataclass

@@ -38,31 +38,18 @@ import torch
 
 from ..core.plex import PLEX
 from ..device import resolve_device
-from .keys import diff, diff_to_f32, extract_bits, le, low32_to_i32, lt, \
-    shr_low32, to_biased
+from ._build import check_launch, check_params_size, device_ptr, load_library
+from .bounded_search import DEFAULT_PROBE, PROBE_MODES, probe_lower_bound
+from .keys import diff, extract_bits, le, low32_to_i32, lt, shr_low32, \
+    take as _take, to_biased
 from .planes import DeltaPlanes, StackedPlanes, build_stacked_planes
+from .segment_lookup import cht_geometry, interp, radix_geometry
 
-PROBE_MODES = ("count", "bisect")
-# fixed-trip bisect reads bit_length(window) keys per query where the count
-# sweep reads all ``window`` of them (PERF.md has both timed on the card)
-DEFAULT_PROBE = "bisect"
 DEFAULT_BLOCK = 512
 
 # kernel launches of ``stacked_lookup`` on CUDA tensors (plain integer; set
 # to 0 before a run and read after it to see which path ran)
 launches = 0
-
-
-def _take(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather that refuses out-of-bounds indices on the CPU. A torch index
-    wraps negative values silently and the kernel would read whatever lies
-    there, where ``jnp.take`` fills; so the plain version checks every
-    gather it makes in the tests."""
-    if idx.device.type == "cpu" and idx.numel() and (
-            int(idx.min()) < 0 or int(idx.max()) >= plane.numel()):
-        raise IndexError(f"gather index out of [0, {plane.numel()}): "
-                         f"[{int(idx.min())}, {int(idx.max())}]")
-    return plane[idx]
 
 
 def _route(sp: StackedPlanes, q: torch.Tensor) -> torch.Tensor:
@@ -76,10 +63,9 @@ def _route(sp: StackedPlanes, q: torch.Tensor) -> torch.Tensor:
 def _search_geometry(sp: StackedPlanes) -> tuple[int, int]:
     """Width of the spline window the count search covers, and the trips of
     the bisect over it."""
-    s = sp.static
     if sp.kind == "radix":
-        return s["max_win"], max(int(s["max_win"] - 1).bit_length(), 0)
-    return s["delta_max"] + 1, max(int(s["delta_max"]).bit_length(), 0)
+        return radix_geometry(sp.static["max_win"])
+    return cht_geometry(sp.static["delta_max"])
 
 
 def _spline_window(sp: StackedPlanes, q: torch.Tensor, sid: torch.Tensor,
@@ -136,39 +122,6 @@ def _predecessor(sp, q, row, ns, lo, hi):
     return lo
 
 
-def _interp(sp: StackedPlanes, q: torch.Tensor, g: torch.Tensor):
-    """float32 spline interpolation at flat segment index ``g``, rounding
-    exactly as the reference's ``_interp``."""
-    x0 = _take(sp.sk, g)
-    x1 = _take(sp.sk, g + 1)
-    y0 = _take(sp.spos, g)
-    y1 = _take(sp.spos, g + 1)
-    dx = torch.clamp(diff_to_f32(diff(x1, x0)), min=1.0)
-    # a query below the segment start snaps to t = 0
-    dq = torch.where(lt(q, x0), torch.zeros_like(dx),
-                     diff_to_f32(diff(q, x0)))
-    t = torch.clamp(dq / dx, 0.0, 1.0)
-    return y0 + t * (y1 - y0)
-
-
-def probe_lower_bound(keys: torch.Tensor, q: torch.Tensor,
-                      base: torch.Tensor, *, window: int, mode: str):
-    """First index in ``[base, base + window]`` whose key is >= q
-    (``base + window`` when every window key is < q); the count and the
-    bisect form give identical results."""
-    if mode == "count":
-        idx = base[:, None] + torch.arange(window, device=q.device)
-        return base + lt(_take(keys, idx), q[:, None]).sum(dim=1)
-    lo = base
-    hi = base + window - 1
-    for _ in range(int(window).bit_length()):
-        mid = (lo + hi) >> 1
-        ge = ~lt(_take(keys, mid), q)
-        hi = torch.where(ge, mid, hi)
-        lo = torch.where(ge, lo, mid + 1)
-    return lo
-
-
 def stacked_lookup_plain(sp: StackedPlanes, probe: str, q: torch.Tensor,
                          delta: DeltaPlanes | None = None):
     """The whole pipeline in plain torch ops on ``q``'s device.
@@ -183,7 +136,7 @@ def stacked_lookup_plain(sp: StackedPlanes, probe: str, q: torch.Tensor,
     seg = _predecessor(sp, q, row, ns, lo, hi)
     # min(max(.)) order, as jnp.clip: with one spline point this gives -1
     seg = torch.minimum(torch.clamp(seg, min=0), ns - 2)
-    pred = _interp(sp, q, row + seg)
+    pred = interp(sp.sk, sp.spos, q, row + seg)
     base = torch.floor(pred).long() - sp.eps_eff
     base = torch.clamp(base, 0, sp.n_data_max - sp.window)
     drow = sid * sp.n_data_max
@@ -225,15 +178,7 @@ _EXPECT = {"sk": torch.int64, "spos": torch.float32, "dk": torch.int64,
 
 
 def _ptr(name: str, t: torch.Tensor, dev: torch.device) -> int:
-    """Device pointer of a plane the kernel reads, after the checks the
-    kernel cannot make itself."""
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-    if t.dtype != _EXPECT[name]:
-        raise TypeError(f"{name} must be {_EXPECT[name]}, got {t.dtype}")
-    if t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous 1-D tensor")
-    return t.data_ptr()
+    return device_ptr(name, t, _EXPECT[name], dev)
 
 
 def _launch(sp: StackedPlanes, probe: str, q: torch.Tensor,
@@ -241,11 +186,8 @@ def _launch(sp: StackedPlanes, probe: str, q: torch.Tensor,
     """One kernel launch over ``q`` on the current stream (no sync, no
     allocation inside the kernel)."""
     global launches
-    from ._build import load_library
     lib = load_library("stacked_lookup")
-    if lib.plex_params_size() != ctypes.sizeof(_Params):
-        raise RuntimeError("_Params does not match PlexParams in "
-                           "csrc/stacked_lookup.cu")
+    check_params_size(lib, "plex_params_size", _Params)
     dev = q.device
     if q.dtype != torch.int64 or q.dim() != 1 or not q.is_contiguous():
         raise ValueError("queries must be a contiguous 1-D int64 tensor")
@@ -291,9 +233,7 @@ def _launch(sp: StackedPlanes, probe: str, q: torch.Tensor,
     err = lib.plex_stacked_lookup(
         ctypes.addressof(p), int(sp.kind == "cht"), int(s["mode"] == "bisect"),
         int(probe == "bisect"), int(delta is not None), stream)
-    if err != 0:
-        raise RuntimeError(f"stacked_lookup kernel launch failed: CUDA "
-                           f"error {err} ({lib.plex_error_string(err)!r})")
+    check_launch(lib, "plex_error_string", err, "stacked_lookup")
     launches += 1
     return out, sid, base
 
