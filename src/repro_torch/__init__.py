@@ -4,8 +4,12 @@ reference it is held against).
 The host build (spline, auto-tune, radix/CHT layer, sharded snapshot) stays
 numpy; lookups run on an NVIDIA GPU through the hand-written CUDA kernel in
 ``kernels/csrc/stacked_lookup.cu``, with a plain PyTorch version of the same
-pipeline for CPU tensors. Entry points default to the CUDA device and raise
-without one unless ``device="cpu"`` is passed.
+pipeline for CPU tensors. The LM substrate's serving side (``configs``,
+``layers``, ``models``, ``serving.engine``, ``launch.serve``) runs the
+dense-attention architectures, its prefill attention through the
+hand-written flash-attention kernel ``kernels/csrc/flash_attention.cu``.
+Entry points default to the CUDA device and raise without one unless
+``device="cpu"`` is passed.
 """
 from .device import resolve_device
 

@@ -1,5 +1,5 @@
-"""Carry index state across: a port ``PLEX`` or ``Snapshot`` from plain
-arrays.
+"""Carry state across from plain arrays: a port ``PLEX`` or ``Snapshot``,
+and the LM's parameters (``lm_params_from_arrays``).
 
 ``plex_from_arrays`` takes one index's key array, spline, radix layer and
 tuning; ``snapshot_from_arrays`` takes, as numpy arrays, what a sharded PLEX
@@ -21,13 +21,17 @@ from __future__ import annotations
 from typing import Any, Mapping, Sequence
 
 import numpy as np
+import torch
 
+from .configs.base import ArchConfig
 from .core.autotune import TuneResult
 from .core.cht import CHT
 from .core.index import Snapshot
 from .core.plex import PLEX, BuildStats
 from .core.radix_table import RadixTable
 from .core.spline import Spline
+from .device import resolve_device
+from .models.lm import build_segments, check_ported
 
 
 def _layer(spec: Mapping[str, Any], n_spline: int):
@@ -82,3 +86,33 @@ def snapshot_from_arrays(keys: np.ndarray, offsets: np.ndarray,
                                sh["tuning"], eps)
               for lo, hi, sh in zip(offsets, ends, shards)]
     return Snapshot(keys, eps, offsets, plexes, device=device)
+
+
+def _unstack(tree, r: int):
+    if isinstance(tree, Mapping):
+        return {k: _unstack(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _to_tensors(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _to_tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_tensors(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def lm_params_from_arrays(cfg: ArchConfig, tree: Mapping[str, Any],
+                          device=None) -> dict:
+    """The port ``Model``'s parameters from the reference's params pytree
+    as numpy arrays (``jax.tree.map(np.asarray, params)``): every leaf of a
+    segment loses its stacked leading ``[n]`` into one dict per layer, the
+    rest is carried as it is, all on ``device`` (default: the CUDA card).
+    The port then computes the reference model's function."""
+    check_ported(cfg)
+    out = dict(tree)
+    for si, seg in enumerate(build_segments(cfg)):
+        out[f"seg{si}"] = {
+            blk: [_unstack(leaves, r) for r in range(seg.repeats)]
+            for blk, leaves in tree[f"seg{si}"].items()}
+    return _to_tensors(out, resolve_device(device))

@@ -49,6 +49,11 @@ _SIGNATURES = {
         "bounded_search_error_string": ([ctypes.c_int], ctypes.c_char_p),
         "bounded_search_params_size": ([], ctypes.c_int),
     },
+    "flash_attention": {
+        "flash_attention_fwd": ([_C_VOID_P, _C_VOID_P], ctypes.c_int),
+        "flash_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        "flash_attention_params_size": ([], ctypes.c_int),
+    },
 }
 
 _lock = threading.Lock()

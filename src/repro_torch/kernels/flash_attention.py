@@ -1,0 +1,167 @@
+"""K5: GQA flash-attention forward, plain PyTorch version and CUDA kernel
+wrapper (the port of ``repro.kernels.flash_attention``).
+
+q is ``[B, Sq, H, D]``, k and v are ``[B, Skv, KVH, D]``; query head ``h``
+attends with kv head ``h // (H // KVH)``. Per row, an online softmax over
+key blocks keeps the running max ``m`` and denominator ``l`` in float32;
+scores are scaled in float32, masked causally from a common origin (row
+``i`` sees keys ``j <= i``) when ``causal``, ``p`` is rounded to v's dtype
+before ``p @ v``, the sum is float32, and the output is
+``o / max(l, 1e-30)`` in q's dtype.
+
+``flash_attention_plain`` is that function as blocked PyTorch ops over
+``block_k``-wide key blocks, every row at once (rows are independent, so
+``block_q`` does not change the arithmetic); a ragged last block is simply
+shorter. ``flash_attention_fwd`` dispatches on the tensors' device: the plain
+version for CPU tensors, the kernel (``csrc/flash_attention.cu``) for CUDA
+tensors of float32 or bfloat16 with D in ``SUPPORTED_HEAD_DIMS``, and it
+raises for any other CUDA tensor: there is no fallback between them.
+``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import check_launch, check_params_size, load_library
+
+NEG_INF = -1e30
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128)
+# the kernel's key tile: the plain version with ``block_k=KERNEL_BLOCK_K``
+# rescales at the same keys, so p is rounded against the same running max
+KERNEL_BLOCK_K = 64
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches of ``flash_attention_fwd`` on CUDA tensors (plain integer;
+# set to 0 before a run and read after it to see which path ran)
+launches = 0
+
+
+def _check_shapes(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("q must be [B,Sq,H,D] and k, v one [B,Skv,KVH,D] "
+                         f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError("q, k and v must share batch and head dim")
+    if k.shape[2] == 0 or q.shape[2] % k.shape[2]:
+        raise ValueError(f"{q.shape[2]} query heads are not a multiple of "
+                         f"{k.shape[2]} kv heads")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, scale: float | None = None,
+                          block_q: int = 256, block_k: int = 256
+                          ) -> torch.Tensor:
+    """The Pallas kernel's function in plain PyTorch ops (see the module
+    docstring); the CPU path of ``flash_attention_fwd`` and the reference
+    the kernel is held against on the card. ``block_k`` sets where the
+    softmax rescales; ``block_q`` is checked and has no effect, since every
+    row is computed at once and rows are independent."""
+    _check_shapes(q, k, v)
+    if block_q < 1 or block_k < 1:
+        raise ValueError("blocks must be positive")
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    bk = min(block_k, max(skv, 1))
+    # [B, KVH, G, Sq, D] against [B, KVH, Skv, D]: no repeated k or v
+    qg = q.float().reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)
+    vt = v.permute(0, 2, 1, 3)
+    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, g, sq, d), dtype=torch.float32,
+                      device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    for k0 in range(0, skv, bk):
+        kb = kf[:, :, k0:k0 + bk]
+        s = torch.matmul(qg, kb[:, :, None].transpose(-1, -2)) * scale
+        if causal:
+            kpos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
+            s = torch.where(qpos >= kpos[None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        m = m_new
+        pv = torch.matmul(p.to(v.dtype).float(),
+                          vt[:, :, None, k0:k0 + bk].float())
+        acc = acc * corr[..., None] + pv
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+class _FlashParams(ctypes.Structure):
+    """Mirror of ``FlashParams`` in ``csrc/flash_attention.cu``."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in ("q", "k", "v", "o")]
+                + [(f"{t}_s{a}", ctypes.c_int64)
+                   for t in ("q", "k", "v", "o") for a in ("b", "s", "h")]
+                + [(name, ctypes.c_int32) for name in (
+                    "b", "sq", "skv", "h", "kvh", "d", "causal", "dtype")]
+                + [("scale", ctypes.c_float)])
+
+
+def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """One kernel launch on the current stream (no sync; the output is the
+    only allocation)."""
+    global launches
+    dev = q.device
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the flash-attention kernel takes float32 or "
+                        f"bfloat16, not {q.dtype}")
+    b, sq, h, d = q.shape
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"the flash-attention kernel takes head dims "
+                         f"{SUPPORTED_HEAD_DIMS}, not {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dim must be dense (stride 1)")
+    if b * h > 65535 or max(sq, k.shape[1]) >= (1 << 31):
+        raise ValueError("B*H must be at most 65535 and sequences below 2^31")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if q.numel() == 0:          # nothing to launch, nothing counted
+        return out
+    lib = load_library("flash_attention")
+    check_params_size(lib, "flash_attention_params_size", _FlashParams)
+    p = _FlashParams()
+    p.q, p.k, p.v, p.o = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr())
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
+        for axis, a in zip(("b", "s", "h"), range(3)):
+            setattr(p, f"{name}_s{axis}", t.stride(a))
+    p.b, p.sq, p.skv, p.h, p.kvh, p.d = b, sq, k.shape[1], h, k.shape[2], d
+    p.causal = int(causal)
+    p.dtype = _DTYPE_CODES[q.dtype]
+    p.scale = scale
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.flash_attention_fwd(ctypes.addressof(p), stream)
+    check_launch(lib, "flash_attention_error_string", err, "flash_attention")
+    launches += 1
+    return out
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, scale: float | None = None,
+                        block_q: int = 256, block_k: int = 256
+                        ) -> torch.Tensor:
+    """K5: ``[B,Sq,H,D]`` attention output (forward only). CPU tensors take
+    the plain version with these blocks; CUDA tensors launch the kernel,
+    whose tiles are its own (the block arguments do not reach it), or
+    raise. An empty q launches nothing and returns an empty output."""
+    _check_shapes(q, k, v)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     block_q=block_q, block_k=block_k)
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, float(scale))
+    raise ValueError(f"unsupported device {q.device}")
