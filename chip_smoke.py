@@ -14,13 +14,16 @@ paths:
   of each SOSD dataset (the most one index's float32 rank plane holds), then
   the {radix, CHT} x {spline count, bisect} x {probe count, bisect} matrix;
   every rank of both checked against ``np.searchsorted``;
-* LM serving (K5): the flash-attention kernel against its plain version
-  (phase ``attention``); minitron-4b at full width with random weights,
-  a batched prefill of 32,768 tokens (one K5 launch a layer, each replayed
-  through the plain version, then timed again unrecorded) and a float32
-  check of prefill against token-by-token decode (``lm_prefill``); then the
-  ``ServeEngine``
-  over ten requests whose position groups split (``lm_serve``).
+* LM serving (K5): the flash-attention kernels against their plain version,
+  bf16 on the Hopper kernel (wgmma, TMA) and f32 on the SIMT one, the bf16
+  cases also held to the exact function in float64 (phase ``attention``);
+  minitron-4b at full width with random weights, a batched prefill of
+  32,768 tokens (one K5 launch a layer, each replayed in bf16 through the
+  plain version with tensor-core scores and through the plain version, and
+  its first rows held to float64; then timed again unrecorded) and a
+  float32 check of prefill against token-by-token decode (``lm_prefill``);
+  then the ``ServeEngine`` over ten requests whose position groups split
+  (``lm_serve``).
 
 Each phase prints one JSON line; the ``kernels`` line carries each kernel's
 launches on its path, its time, its plain version's time, its bound and a
@@ -169,7 +172,8 @@ def phase_build() -> None:
     for name, path in paths.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
-        ptxas[name] = [ln.strip() for ln in lines if "registers" in ln][:16]
+        ptxas[name] = [ln.strip() for ln in lines
+                       if "registers" in ln or "spill" in ln][:32]
     emit("build", seconds=secs, libraries=sorted(paths), ptxas=ptxas,
          flags=" ".join(_build.NVCC_FLAGS))
 
@@ -706,10 +710,24 @@ def phase_index_matrix(device, px, q_np) -> dict:
 
 ATTN_SHAPES = ((2, 256, 4, 2, 64), (1, 512, 8, 8, 32), (2, 256, 4, 1, 128),
                (1, 128, 2, 2, 16))      # test_pallas_flash_sweep's shapes
+# bf16 cases the sweep misses, (b, s, h, kvh, d, causal): D 96 at group 3,
+# ragged against the 128-key tile; minitron-4b's grouping at S 4,096; a
+# ragged non-causal case at D 16 and at D 32
+ATTN_BF16_CASES = ((1, 1000, 6, 2, 96, True), (1, 4096, 24, 8, 128, True),
+                   (1, 4096, 24, 8, 128, False), (1, 1000, 4, 2, 16, False),
+                   (2, 333, 4, 1, 32, False))
+ATTN_TIMING_SEQ = 4096                  # bf16 kernel beside SDPA, each D
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # the reference's tolerances
 LM_ARCH = "minitron-4b"
 LM_PREFILL_SEQ = 32768                  # prefill_32k's length
 LM_CHECK_TOKENS = 64                    # prefill against decode, float32
+LM_EXACT_ROWS = 4096                    # each launch's rows held to f64
+# a bf16 kernel's max and mean error against the exact float64 function may
+# be at most these factors of its plain version's (at the kernel's tile):
+# one bf16 output step doubles a max error; two plain tiles' means differ
+# by under 2% on the attention cases
+EXACT_MAX_FACTOR = 2.0
+EXACT_MEAN_FACTOR = 1.05
 LM_SERVE_BATCH = 4
 LM_SERVE_MAX_SEQ = 512
 # the H100's dense bf16 tensor-core peak (NVIDIA's data sheet, at 700 W):
@@ -751,39 +769,168 @@ def attention_bound_ms(q, k, causal: bool) -> tuple[float, str]:
             else (byte_ms, "bytes"))
 
 
-def phase_attention(device, seed: int) -> dict:
-    """K5 against its plain version on the card: the four shapes of
-    ``test_pallas_flash_sweep``, causal and not, float32 and bfloat16."""
+def outside_tol(got, want, dtype: str) -> int:
+    """How many elements of ``got`` lie outside the reference's tolerance of
+    ``want`` (rtol = atol = ``ATTN_TOL[dtype]``)."""
+    tol = ATTN_TOL[dtype]
+    g, w = got.float(), want.float()
+    return int(((g - w).abs() > tol + tol * w.abs()).sum())
+
+
+def exact_attention_f64(q, k, v, causal: bool):
+    """``softmax(q.k^T * D^-0.5) v`` in float64, with no key blocks and no
+    rounding of p: the function every K5 version approximates, for
+    [B, S, H, D] q against [B, S, KVH, D] k and v, one kv head at a time."""
+    import torch
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    out = torch.empty((b, sq, h, d), dtype=torch.float64, device=q.device)
+    keep = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril()
+    for bi in range(b):
+        for j in range(kvh):
+            qj = q[bi, :, j * g:(j + 1) * g].double().permute(1, 0, 2)
+            s = qj @ k[bi, :, j].double().T * d ** -0.5
+            if causal:
+                s = s.masked_fill(~keep, float("-inf"))
+            out[bi, :, j * g:(j + 1) * g] = (
+                torch.softmax(s, dim=-1) @ v[bi, :, j].double()).permute(
+                    1, 0, 2)
+    return out
+
+
+def exact_errors(q, k, v, causal: bool, **outs) -> dict:
+    """Max and mean abs error against ``exact_attention_f64`` of each named
+    ``[B, S, H, D]`` output of the function on q, k and v."""
+    exact = exact_attention_f64(q, k, v, causal)
+    errs = {}
+    for name, t in outs.items():
+        e = (t.double() - exact).abs()
+        errs[name] = (e.max().item(), e.mean().item())
+    return errs
+
+
+def check_exact(errs: dict, what: str, against: str = "plain") -> None:
+    """Every output in ``errs`` but ``against`` is within
+    ``EXACT_MAX_FACTOR`` (max) and ``EXACT_MEAN_FACTOR`` (mean) of
+    ``against``'s error against the exact function."""
+    ref_max, ref_mean = errs[against]
+    for name, (e_max, e_mean) in errs.items():
+        check(e_max <= EXACT_MAX_FACTOR * ref_max
+              and e_mean <= EXACT_MEAN_FACTOR * ref_mean,
+              f"{what}: {name} is further from the exact function than "
+              f"{against}: {errs}")
+
+
+def plain_tensor_core_scores(q, k, v, *, causal: bool = True,
+                             scale: float | None = None,
+                             block_k: int = 128):
+    """``flash_attention_plain``'s function and blocks with q.k^T as bf16
+    products summed in float32 on the tensor cores
+    (``bmm(..., out_dtype=float32)``, the Pallas kernel's ``jnp.dot(...,
+    preferred_element_type=float32)``), which is how the Hopper kernel's
+    wgmma rounds; bfloat16 CUDA tensors only. The prefill's near-one-hot
+    rows put some p within a score rounding of a bf16 step, so the
+    prefill's launches are replayed through this at the kernel's tile, and
+    it is held to the exact function as closely as the plain version."""
     import torch
     from repro_torch.kernels import flash_attention as FA
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    q3 = q.reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4).reshape(
+        b * kvh, g * sq, d)
+    k3 = k.permute(0, 2, 1, 3).reshape(b * kvh, skv, d)
+    vt = v.permute(0, 2, 1, 3)
+    m = torch.full((b, kvh, g, sq), FA.NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, g, sq, d), dtype=torch.float32,
+                      device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    for k0 in range(0, skv, block_k):
+        n = min(block_k, skv - k0)
+        s = torch.bmm(q3, k3[:, k0:k0 + n].transpose(1, 2).contiguous(),
+                      out_dtype=torch.float32).view(b, kvh, g, sq, n) * scale
+        if causal:
+            kpos = torch.arange(k0, k0 + n, device=q.device)
+            s = torch.where(qpos >= kpos[None, :], s, FA.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        m = m_new
+        pv = torch.matmul(p.to(v.dtype).float(),
+                          vt[:, :, None, k0:k0 + n].float())
+        acc = acc * corr[..., None] + pv
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def phase_attention(device, seed: int,
+                    timing_seq: int = ATTN_TIMING_SEQ) -> dict:
+    """K5 against its plain version at the kernel's own key tile, on the
+    card: the four shapes of ``test_pallas_flash_sweep``, causal and not,
+    float32 (SIMT kernel) and bfloat16 (Hopper kernel), then
+    ``ATTN_BF16_CASES``; one launch a case; each bf16 case also held to the
+    exact function (``check_exact``). Then each bf16 head dim timed
+    at ``timing_seq`` (24/8 heads, causal) beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=device).manual_seed(seed)
+
+    def qkv(b, s, h, kvh, d, dt):
+        return [torch.randn(shape, generator=gen, device=device).to(dt)
+                for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d))]
+    cases = [(*shape, causal, dtype) for shape in ATTN_SHAPES
+             for causal in (True, False)
+             for dtype in ("float32", "bfloat16")]
+    cases += [(*case, "bfloat16") for case in ATTN_BF16_CASES]
     worst = 0.0
-    cases = 0
-    for b, s, h, kvh, d in ATTN_SHAPES:
-        for causal in (True, False):
-            for dtype in ("float32", "bfloat16"):
-                dt = getattr(torch, dtype)
-                q, k, v = (torch.randn(shape, generator=gen, device=device
-                                       ).to(dt)
-                           for shape in ((b, s, h, d), (b, s, kvh, d),
-                                         (b, s, kvh, d)))
-                before = FA.launches
-                got = FA.flash_attention_fwd(q, k, v, causal=causal)
-                launched = FA.launches - before
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)   # a fault shows here
-                err, ok = attention_err(got, FA.flash_attention_plain(
-                    q, k, v, causal=causal, block_k=FA.KERNEL_BLOCK_K),
-                    dtype)
-                row = dict(b=b, s=s, h=h, kvh=kvh, d=d, causal=causal,
-                           dtype=dtype, launches=launched, max_abs_err=err,
-                           tol=ATTN_TOL[dtype], within_tol=ok)
-                emit("attention", **row)
-                check(ok and launched == (device.type == "cuda"),
-                      f"K5 case failed: {row}")
-                worst = max(worst, err)
-                cases += 1
-    return dict(cases=cases, max_abs_err=worst)
+    for b, s, h, kvh, d, causal, dtype in cases:
+        dt = getattr(torch, dtype)
+        q, k, v = qkv(b, s, h, kvh, d, dt)
+        before = FA.launches
+        got = FA.flash_attention_fwd(q, k, v, causal=causal)
+        launched = FA.launches - before
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # a fault shows here
+        block_k = FA.kernel_block_k(dt, d)
+        plain = FA.flash_attention_plain(q, k, v, causal=causal,
+                                         block_k=block_k)
+        err, ok = attention_err(got, plain, dtype)
+        row = dict(b=b, s=s, h=h, kvh=kvh, d=d, causal=causal, dtype=dtype,
+                   kernel=FA.KERNELS[dt], block_k=block_k,
+                   launches=launched, max_abs_err=err, tol=ATTN_TOL[dtype],
+                   within_tol=ok)
+        if dt == torch.bfloat16:
+            row["exact_f64_max_mean_err"] = exact_errors(
+                q, k, v, causal, kernel=got, plain=plain)
+        emit("attention", **row)
+        check(ok and launched == (device.type == "cuda"),
+              f"K5 case failed: {row}")
+        if dt == torch.bfloat16:
+            check_exact(row["exact_f64_max_mean_err"], f"K5 case {row}")
+        worst = max(worst, err)
+    timing = []
+    for d in FA.SUPPORTED_HEAD_DIMS:
+        q, k, v = qkv(1, timing_seq, 24, 8, d, torch.bfloat16)
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ms = device_ms(lambda: FA.flash_attention_fwd(q, k, v), device)
+        row = dict(d=d, b=1, s=timing_seq, h=24, kvh=8, causal=True,
+                   dtype="bfloat16", kernel_ms=ms,
+                   library_ms=device_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           qs, ks, vs, is_causal=True, enable_gqa=True),
+                       device),
+                   bound_ms=attention_bound_ms(q, k, True)[0],
+                   kernel_tflops=attention_flops(
+                       1, timing_seq, timing_seq, 24, d, True) / (ms * 1e9))
+        emit("attention_timing", **row)
+        timing.append(row)
+    return dict(cases=len(cases), max_abs_err=worst, timing=timing)
 
 
 class recorded_attention:
@@ -822,7 +969,10 @@ def timed(fn, device) -> tuple[object, float]:
 def phase_lm_prefill(device, seed: int, seq: int, cfg=None) -> tuple:
     """minitron-4b at full width, random weights from ``seed``: a batched
     prefill of ``seq`` tokens through ``make_prefill_step`` whose K5 launches
-    are each replayed through the plain version; K5 timed at that shape
+    are each replayed (bf16: within the tolerance of the plain version with
+    tensor-core scores; the float32-score plain version's distance
+    reported; both and the kernel held to float64 on the first rows); K5
+    timed at that shape
     beside its plain version, its bound and SDPA; the same prefill again,
     unrecorded, as the main path (one K5 launch a layer, counted; its time
     to first token and peak memory); then the float32 check of prefill
@@ -858,28 +1008,62 @@ def phase_lm_prefill(device, seed: int, seq: int, cfg=None) -> tuple:
     check(len(rec.calls) == cfg.n_layers,
           f"{len(rec.calls)} attention calls for {cfg.n_layers} layers")
     dtype = str(rec_logits.dtype).split(".")[1]
+    qdt = rec.calls[0][0].dtype            # the dtype that picks the kernel
+    kernel = FA.KERNELS[qdt]
+    tensor_core = qdt == torch.bfloat16 and device.type == "cuda"
     worst = 0.0
+    replays = []
     for i, call in enumerate(rec.calls):
+        # each launch replayed in full: the gate is the tolerance against the
+        # replay that rounds scores as the kernel does; the float32-score
+        # plain version's distance is reported. Its first rows, and the
+        # replays', held to the exact function in float64
         q, k, v, kw, got = call
-        err, ok = attention_err(got, FA.flash_attention_plain(
-            q, k, v, block_k=FA.KERNEL_BLOCK_K, **kw), dtype)
-        check(ok, f"K5 launch {i} of the prefill differs from its plain "
-                  f"version by {err} (tolerance {ATTN_TOL[dtype]})")
+        block_k = FA.kernel_block_k(qdt, q.shape[-1])
+        plain = FA.flash_attention_plain(q, k, v, block_k=block_k, **kw)
+        replay = (plain_tensor_core_scores(q, k, v, block_k=block_k, **kw)
+                  if tensor_core else plain)
+        err, ok = attention_err(got, replay, dtype)
+        plain_err, _ = attention_err(got, plain, dtype)
+        causal = kw.get("causal", True)
+        rows = min(LM_EXACT_ROWS, q.shape[1])
+        keys = rows if causal else k.shape[1]
+        outs = dict(kernel=got[:, :rows], plain=plain[:, :rows])
+        if tensor_core:
+            outs["tensor_core_plain"] = replay[:, :rows]
+        row = dict(launch=i, block_k=block_k, max_abs_err=err,
+                   tol=ATTN_TOL[dtype], within_tol=ok,
+                   plain_max_abs_err=plain_err,
+                   plain_outside_tol=outside_tol(got, plain, dtype),
+                   exact_f64_rows=rows,
+                   exact_f64_max_mean_err=exact_errors(
+                       q[:, :rows], k[:, :keys], v[:, :keys], causal,
+                       **outs))
+        emit("lm_prefill_replay", **row)
+        check(ok, f"K5 launch {i} of the prefill differs from its replay "
+                  f"by {err} (tolerance {ATTN_TOL[dtype]})")
+        if qdt == torch.bfloat16:
+            check_exact(row["exact_f64_max_mean_err"], f"K5 launch {i}")
         worst = max(worst, err)
-    q, k, v, kw = rec.calls[0][:4]
+        replays.append(row)
+        del plain, replay, outs
     del rec, call, got
     b, sq, h, d = q.shape
-    causal = kw.get("causal", True)
     bound_ms, bound_by = attention_bound_ms(q, k, causal)
     flops = attention_flops(b, sq, k.shape[1], h, d, causal)
     ms = device_ms(lambda: FA.flash_attention_fwd(q, k, v, **kw), device,
                    reps=3)
     plain_ms = device_ms(lambda: FA.flash_attention_plain(
-        q, k, v, block_k=FA.KERNEL_BLOCK_K, **kw), device, reps=1)
+        q, k, v, block_k=FA.kernel_block_k(qdt, d), **kw), device, reps=1)
     qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, is_causal=causal, enable_gqa=True), device, reps=3)
-    del q, k, v, qs, ks, vs
+    del qs, ks, vs
+    # the float32 SIMT kernel at the same shape: the earlier design's time
+    q, k, v = (t.float() for t in (q, k, v))
+    simt_f32_ms = device_ms(lambda: FA.flash_attention_fwd(q, k, v, **kw),
+                            device, reps=1)
+    del q, k, v
     if device.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -904,8 +1088,15 @@ def phase_lm_prefill(device, seed: int, seq: int, cfg=None) -> tuple:
                warmup_s=warm_s, recorded_prefill_s=rec_s,
                ttft_s=prefill_s,
                prefill_tokens_per_s=seq / prefill_s, launches=launches,
-               launches_expected=cfg.n_layers, max_abs_err=worst,
-               tol=ATTN_TOL[dtype], kernel_ms=ms, plain_ms=plain_ms,
+               kernel=kernel, launches_expected=cfg.n_layers,
+               max_abs_err=worst, tol=ATTN_TOL[dtype],
+               block_k=FA.kernel_block_k(qdt, d),
+               replay="tensor-core scores" if tensor_core else "plain",
+               plain_max_abs_err=max(r["plain_max_abs_err"]
+                                     for r in replays),
+               plain_outside_tol=sum(r["plain_outside_tol"]
+                                     for r in replays),
+               kernel_ms=ms, plain_ms=plain_ms, simt_f32_ms=simt_f32_ms,
                library_ms=library_ms, library="F.scaled_dot_product_attention"
                "(is_causal=True, enable_gqa=True)", bound_ms=bound_ms,
                bound_by=bound_by, kernel_tflops=flops / (ms * 1e9),
@@ -1157,7 +1348,7 @@ def main(argv=None) -> int:
         "bound_by": "bytes", "library_ms": k["library_ms"],
         "matches_plain": True} for name, k in index.items()] + [{
         "name": "flash_attention", "route": "cuda",
-        "source": csrc + "flash_attention.cu",
+        "source": csrc + prefill["kernel"] + ".cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": prefill["launches"],
         "max_abs_err": max(attn["max_abs_err"], prefill["max_abs_err"]),

@@ -54,6 +54,12 @@ _SIGNATURES = {
         "flash_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
         "flash_attention_params_size": ([], ctypes.c_int),
     },
+    "flash_attention_sm90": {
+        "flash_attention_sm90_fwd": ([_C_VOID_P, _C_VOID_P], ctypes.c_int),
+        "flash_attention_sm90_error_string": ([ctypes.c_int],
+                                              ctypes.c_char_p),
+        "flash_attention_sm90_params_size": ([], ctypes.c_int),
+    },
 }
 
 _lock = threading.Lock()

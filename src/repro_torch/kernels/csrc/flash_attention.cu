@@ -1,52 +1,32 @@
-// GQA flash-attention forward for Hopper (sm_90a): K5.
+// GQA flash-attention forward, float32, SIMT (sm_90a): K5's f32 path.
 //
 // Replaces the TPU kernel flash_attention_fwd
-// (src/repro/kernels/flash_attention.py:62). q is [B, Sq, H, D], k and v are
-// [B, Skv, KVH, D], f32 or bf16, addressed through the strides the wrapper
-// passes (the innermost stride is 1); query head h reads kv head
+// (src/repro/kernels/flash_attention.py:62) for float32 inputs; bfloat16
+// goes to the Hopper kernel in flash_attention_sm90.cu (wgmma, TMA). q is
+// [B, Sq, H, D], k and v are [B, Skv, KVH, D], addressed through the strides
+// the wrapper passes (the innermost stride is 1); query head h reads kv head
 // h / (H / KVH). Per row: online softmax with the running (m, l) in f32 over
 // key tiles, scores scaled in f32, an optional causal mask from a common
-// origin (row i sees keys j <= i), p rounded to the input type before p.v,
-// f32 accumulation, and o / max(l, 1e-30) written in q's type: the Pallas
-// kernel's arithmetic, tile by tile, with another tile size.
+// origin (row i sees keys j <= i), f32 products and accumulation, and
+// o / max(l, 1e-30): the Pallas kernel's arithmetic, tile by tile, with
+// another tile size.
 //
-// What bounds it: operations. A causal launch does 4*B*H*D flops for each
-// (row, key) pair it keeps, two products of 2*D each: at B = 1, H = 24,
-// D = 128, Sq = Skv = 32768 that is 6.6 TFLOP against 0.54 GB of q, k, v and
-// o, about 12,000 flops a byte, far above the H100's 295 flops a byte for
-// bf16 tensor cores (989 TFLOP/s dense, 3.35 TB/s). This first kernel does
-// the products as SIMT float32 FMAs (67 TFLOP/s peak), not on the tensor
-// cores: each thread block holds 64 rows of q and walks 64-key tiles of k
-// and v through shared memory, converted to f32 on load, so a key tile read
-// from memory serves 64 rows and both products run from shared memory with
+// What bounds it: operations, 4*B*H*D flops for each (row, key) pair kept.
+// The products are SIMT float32 FMAs (67 TFLOP/s peak), not tensor cores:
+// TF32 would keep about three decimal digits, and the float32 path is held
+// to the reference's 2e-4. Each thread block holds 64 rows of q and walks
+// 64-key tiles of k and v through shared memory, so a key tile read from
+// memory serves 64 rows and both products run from shared memory with
 // 16-byte loads; each thread keeps a 4 x 8 tile of scores and a 4 x D/8
 // tile of the output in registers. Causal tiles past a block's last row are
 // never visited (the Pallas kernel walks them all): the first key tile is
 // never fully masked for any row, so a skipped tile would only add
 // exp(-1e30 - m) = 0. Blocks start with the longest rows, so the causal
-// triangle's heavy blocks do not trail at the end. wgmma and TMA are the
-// next step (ROADMAP queue 2).
+// triangle's heavy blocks do not trail at the end.
 
-#include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-struct FlashParams {
-  // field order mirrors _FlashParams in flash_attention.py
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  // strides in elements over (batch, sequence, head); the last dim is dense
-  int64_t q_sb, q_ss, q_sh;
-  int64_t k_sb, k_ss, k_sh;
-  int64_t v_sb, v_ss, v_sh;
-  int64_t o_sb, o_ss, o_sh;
-  int32_t b, sq, skv, h, kvh, d;
-  int32_t causal;
-  int32_t dtype;  // 0: float32, 1: bfloat16
-  float scale;
-};
+#include "flash_params.cuh"
 
 namespace {
 
@@ -56,25 +36,6 @@ constexpr int kPad = 4;       // row padding of the transposed p tile
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 static_assert(kBQ == kBK, "q and k tiles share load_transposed");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// p as the Pallas kernel feeds it to p.v: p.astype(v.dtype)
-template <typename T> __device__ __forceinline__ float round_p(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 template <int D> struct Layout {
   static constexpr int kVW = (D % 32 == 0) ? 4 : 2;  // output cols a load
@@ -102,17 +63,17 @@ template <> struct Vec<4> {
 
 // rows [row0, row0 + 64) of one head as a [D][64] f32 tile: lanes run along
 // the rows, so the transposed stores hit 32 banks; rows past n are zeros
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_transposed(
-    float* dst, const T* src, int64_t row_stride, int row0, int n) {
+    float* dst, const float* src, int64_t row_stride, int row0, int n) {
   for (int idx = threadIdx.x; idx < kBK * D; idx += kThreads) {
     const int r = idx % kBK, d = idx / kBK;
     const int row = row0 + r;
-    dst[d * kBK + r] = row < n ? to_f32(src[row * row_stride + d]) : 0.f;
+    dst[d * kBK + r] = row < n ? src[row * row_stride + d] : 0.f;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const FlashParams p) {
   using L = Layout<D>;
@@ -130,11 +91,14 @@ flash_fwd_kernel(const FlashParams p) {
   const int kh = hh / (p.h / p.kvh);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest rows first
 
-  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + hh * p.q_sh;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh;
+  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb
+                    + hh * p.q_sh;
+  const float* kp = static_cast<const float*>(p.k) + b * p.k_sb
+                    + kh * p.k_sh;
+  const float* vp = static_cast<const float*>(p.v) + b * p.v_sb
+                    + kh * p.v_sh;
 
-  load_transposed<T, D>(qt, qp, p.q_ss, q0, p.sq);
+  load_transposed<D>(qt, qp, p.q_ss, q0, p.sq);
 
   float m[4], l[4], acc[4][L::kCols];
 #pragma unroll
@@ -152,10 +116,10 @@ flash_fwd_kernel(const FlashParams p) {
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
-    load_transposed<T, D>(kt, kp, p.k_ss, k0, p.skv);
+    load_transposed<D>(kt, kp, p.k_ss, k0, p.skv);
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int j = idx / D, d = idx % D;
-      vs[idx] = k0 + j < p.skv ? to_f32(vp[(k0 + j) * p.v_ss + d]) : 0.f;
+      vs[idx] = k0 + j < p.skv ? vp[(k0 + j) * p.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -200,7 +164,7 @@ flash_fwd_kernel(const FlashParams p) {
       for (int c = 0; c < 8; ++c) {
         const float e = expf(s[i][c] - m_new);
         sum += e;
-        pr[i][c] = round_p<T>(e);
+        pr[i][c] = e;
       }
 #pragma unroll
       for (int o = 1; o < 8; o <<= 1)
@@ -240,7 +204,7 @@ flash_fwd_kernel(const FlashParams p) {
     __syncthreads();              // before the next tile overwrites k, p, v
   }
 
-  T* op = static_cast<T*>(p.o) + b * p.o_sb + hh * p.o_sh;
+  float* op = static_cast<float*>(p.o) + b * p.o_sb + hh * p.o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + tr * 4 + i;
@@ -251,31 +215,30 @@ flash_fwd_kernel(const FlashParams p) {
 #pragma unroll
       for (int e = 0; e < L::kVW; ++e) {
         const int col = q2 * 8 * L::kVW + tc * L::kVW + e;
-        op[row * p.o_ss + col] = from_f32<T>(acc[i][q2 * L::kVW + e] / den);
+        op[row * p.o_ss + col] = acc[i][q2 * L::kVW + e] / den;
       }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const FlashParams* p, cudaStream_t st) {
   const int bytes = Layout<D>::kFloats * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p->sq + kBQ - 1) / kBQ, p->b * p->h);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, st>>>(*p);
+  flash_fwd_kernel<D><<<grid, kThreads, bytes, st>>>(*p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_d(const FlashParams* p, cudaStream_t st) {
   switch (p->d) {
-    case 16: return launch<T, 16>(p, st);
-    case 32: return launch<T, 32>(p, st);
-    case 64: return launch<T, 64>(p, st);
-    case 96: return launch<T, 96>(p, st);
-    case 128: return launch<T, 128>(p, st);
+    case 16: return launch<16>(p, st);
+    case 32: return launch<32>(p, st);
+    case 64: return launch<64>(p, st);
+    case 96: return launch<96>(p, st);
+    case 128: return launch<128>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -290,10 +253,9 @@ int flash_attention_fwd(const FlashParams* p, void* stream) {
   if (p->sq <= 0 || p->b <= 0 || p->h <= 0) return 0;
   if (p->kvh <= 0 || p->h % p->kvh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p->dtype == 0) return launch_d<float>(p, st);
-  if (p->dtype == 1) return launch_d<__nv_bfloat16>(p, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  // bfloat16 is flash_attention_sm90.cu's
+  if (p->dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_d(p, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int err) {

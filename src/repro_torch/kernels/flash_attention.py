@@ -12,11 +12,16 @@ before ``p @ v``, the sum is float32, and the output is
 ``flash_attention_plain`` is that function as blocked PyTorch ops over
 ``block_k``-wide key blocks, every row at once (rows are independent, so
 ``block_q`` does not change the arithmetic); a ragged last block is simply
-shorter. ``flash_attention_fwd`` dispatches on the tensors' device: the plain
-version for CPU tensors, the kernel (``csrc/flash_attention.cu``) for CUDA
-tensors of float32 or bfloat16 with D in ``SUPPORTED_HEAD_DIMS``, and it
-raises for any other CUDA tensor: there is no fallback between them.
-``launches`` counts kernel launches.
+shorter.
+
+``flash_attention_fwd`` dispatches on the tensors' device: the plain
+version for CPU tensors; for CUDA tensors with D in
+``SUPPORTED_HEAD_DIMS`` a kernel chosen by dtype, float32 to the SIMT
+kernel (``csrc/flash_attention.cu``) and bfloat16 to the Hopper kernel
+(``csrc/flash_attention_sm90.cu``: wgmma on the tensor cores, k and v
+tiles by TMA); it raises for any other CUDA tensor: there is no fallback
+between them. ``kernel_block_k`` is each kernel's key tile, where its
+softmax rescales. ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -28,14 +33,61 @@ from ._build import check_launch, check_params_size, load_library
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128)
-# the kernel's key tile: the plain version with ``block_k=KERNEL_BLOCK_K``
-# rescales at the same keys, so p is rounded against the same running max
-KERNEL_BLOCK_K = 64
+# each kernel's key tile: the plain version with ``block_k`` at the kernel's
+# tile rescales at the same keys, so p is rounded against the same running max
+_BLOCK_K = {torch.float32: 64, torch.bfloat16: 128}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel of each dtype: its library, also the prefix of its C functions
+KERNELS = {torch.float32: "flash_attention",
+           torch.bfloat16: "flash_attention_sm90"}
+# the largest byte stride a TMA tensor map takes
+_TMA_MAX_STRIDE = 1 << 40
 
 # kernel launches of ``flash_attention_fwd`` on CUDA tensors (plain integer;
 # set to 0 before a run and read after it to see which path ran)
 launches = 0
+
+
+def kernel_block_k(dtype: torch.dtype, d: int) -> int:
+    """The key tile of the kernel that serves ``dtype`` at head dim ``d``:
+    64 for the float32 SIMT kernel, 128 for the bfloat16 Hopper kernel, at
+    every D of ``SUPPORTED_HEAD_DIMS``."""
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"the flash-attention kernels take head dims "
+                         f"{SUPPORTED_HEAD_DIMS}, not {d}")
+    if dtype not in _BLOCK_K:
+        raise TypeError(f"the flash-attention kernels take float32 or "
+                        f"bfloat16, not {dtype}")
+    return _BLOCK_K[dtype]
+
+
+def tma_strides(name: str, shape, strides, data_ptr: int,
+                element_size: int) -> tuple[int, int, int]:
+    """The (batch, sequence, head) strides, in elements, of a ``[B, S, H, D]``
+    operand as the Hopper kernel's TMA tensor map takes them; raises
+    ValueError for a layout TMA cannot address. A function of the shape,
+    strides and address alone, so it is tested on CPU tensors. TMA needs a
+    dense head dim, a 16-byte aligned address and byte strides that are
+    multiples of 16 below 2^40; the stride of a dim of extent 1 is never
+    used and is given the packed value."""
+    b, s, h, d = shape
+    sb, ss, sh, sd = strides
+    if sd != 1:
+        raise ValueError(f"{name}'s head dim must be dense (stride 1) for "
+                         f"TMA")
+    if data_ptr % 16:
+        raise ValueError(f"{name} starts at an address that is not 16-byte "
+                         f"aligned, which TMA cannot load")
+    sh = sh if h > 1 else d
+    ss = ss if s > 1 else h * sh
+    sb = sb if b > 1 else s * ss
+    for axis, st in (("head", sh), ("sequence", ss), ("batch", sb)):
+        nbytes = st * element_size
+        if nbytes <= 0 or nbytes % 16 or nbytes >= _TMA_MAX_STRIDE:
+            raise ValueError(
+                f"{name}'s {axis} stride is {nbytes} bytes; TMA takes "
+                f"positive multiples of 16 below 2^40")
+    return sb, ss, sh
 
 
 def _check_shapes(q, k, v) -> None:
@@ -56,7 +108,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           ) -> torch.Tensor:
     """The Pallas kernel's function in plain PyTorch ops (see the module
     docstring); the CPU path of ``flash_attention_fwd`` and the reference
-    the kernel is held against on the card. ``block_k`` sets where the
+    the kernels are held against on the card. ``block_k`` sets where the
     softmax rescales; ``block_q`` is checked and has no effect, since every
     row is computed at once and rows are independent."""
     _check_shapes(q, k, v)
@@ -96,7 +148,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _FlashParams(ctypes.Structure):
-    """Mirror of ``FlashParams`` in ``csrc/flash_attention.cu``."""
+    """Mirror of ``FlashParams`` in ``csrc/flash_params.cuh``."""
     _fields_ = ([(name, ctypes.c_void_p) for name in ("q", "k", "v", "o")]
                 + [(f"{t}_s{a}", ctypes.c_int64)
                    for t in ("q", "k", "v", "o") for a in ("b", "s", "h")]
@@ -107,7 +159,8 @@ class _FlashParams(ctypes.Structure):
 
 def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     """One kernel launch on the current stream (no sync; the output is the
-    only allocation)."""
+    only allocation): the SIMT kernel for float32, the Hopper kernel for
+    bfloat16."""
     global launches
     dev = q.device
     for name, t in (("k", k), ("v", v)):
@@ -115,36 +168,44 @@ def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the flash-attention kernel takes float32 or "
-                        f"bfloat16, not {q.dtype}")
     b, sq, h, d = q.shape
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"the flash-attention kernel takes head dims "
-                         f"{SUPPORTED_HEAD_DIMS}, not {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}'s head dim must be dense (stride 1)")
-    if b * h > 65535 or max(sq, k.shape[1]) >= (1 << 31):
-        raise ValueError("B*H must be at most 65535 and sequences below 2^31")
+    kernel_block_k(q.dtype, d)              # raises for dtype and head dim
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    tensors = {"q": q, "k": k, "v": v, "o": out}
+    if q.dtype == torch.bfloat16:
+        strides = {name: tma_strides(name, t.shape, t.stride(), t.data_ptr(),
+                                     t.element_size())
+                   for name, t in tensors.items()}
+    else:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.stride(-1) != 1:
+                raise ValueError(f"{name}'s head dim must be dense "
+                                 f"(stride 1)")
+        if b * h > 65535:
+            raise ValueError("B*H must be at most 65535")
+        strides = {name: t.stride()[:3] for name, t in tensors.items()}
+    if max(sq, k.shape[1]) >= (1 << 31):
+        raise ValueError("sequences must be below 2^31")
     if q.numel() == 0:          # nothing to launch, nothing counted
         return out
-    lib = load_library("flash_attention")
-    check_params_size(lib, "flash_attention_params_size", _FlashParams)
+    if k.shape[1] == 0:         # no keys: o = 0 / max(0, 1e-30)
+        return out.zero_()
+    lib_name = KERNELS[q.dtype]
+    lib = load_library(lib_name)
+    check_params_size(lib, f"{lib_name}_params_size", _FlashParams)
     p = _FlashParams()
     p.q, p.k, p.v, p.o = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr())
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", out)):
-        for axis, a in zip(("b", "s", "h"), range(3)):
-            setattr(p, f"{name}_s{axis}", t.stride(a))
+    for name in ("q", "k", "v", "o"):
+        for axis, st in zip(("b", "s", "h"), strides[name]):
+            setattr(p, f"{name}_s{axis}", st)
     p.b, p.sq, p.skv, p.h, p.kvh, p.d = b, sq, k.shape[1], h, k.shape[2], d
     p.causal = int(causal)
     p.dtype = _DTYPE_CODES[q.dtype]
     p.scale = scale
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.flash_attention_fwd(ctypes.addressof(p), stream)
-    check_launch(lib, "flash_attention_error_string", err, "flash_attention")
+    err = getattr(lib, f"{lib_name}_fwd")(ctypes.addressof(p), stream)
+    check_launch(lib, f"{lib_name}_error_string", err, lib_name)
     launches += 1
     return out
 
@@ -154,9 +215,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         block_q: int = 256, block_k: int = 256
                         ) -> torch.Tensor:
     """K5: ``[B,Sq,H,D]`` attention output (forward only). CPU tensors take
-    the plain version with these blocks; CUDA tensors launch the kernel,
-    whose tiles are its own (the block arguments do not reach it), or
-    raise. An empty q launches nothing and returns an empty output."""
+    the plain version with these blocks; CUDA tensors launch the kernel of
+    their dtype, whose tiles are its own (the block arguments do not reach
+    it; ``kernel_block_k`` gives its key tile), or raise. An empty q or k
+    launches nothing: the output is empty, or zeros."""
     _check_shapes(q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
