@@ -10,10 +10,15 @@ paths:
 
 * serving (K1): a PlexService over 200M SOSD-scale ``amzn`` keys answering
   lookup requests, merged lookups after inserts and deletes, and a merge;
+  each request's launches replayed as served (the overlap of programmatic
+  dependent launch included), with one summary level against two and
+  overlap against none, and K4 on the 200M-key plane, one level against
+  two;
 * the per-index path (K2/K3 and K4): ``LearnedIndex.lookup`` over 2^24 keys
   of each SOSD dataset (the most one index's float32 rank plane holds), then
   the {radix, CHT} x {spline count, bisect} x {probe count, bisect} matrix;
-  every rank of both checked against ``np.searchsorted``;
+  every rank of both checked against ``np.searchsorted``; K4's summary probe
+  timed with one level against two;
 * LM serving (K5): the flash-attention kernels against their plain version,
   bf16 on the Hopper kernel (wgmma, TMA) and f32 on the SIMT one, the bf16
   cases also held to the exact function in float64 (phase ``attention``);
@@ -37,6 +42,7 @@ of the repository, or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import pathlib
@@ -173,7 +179,8 @@ def phase_build() -> None:
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = [ln.strip() for ln in lines
-                       if "registers" in ln or "spill" in ln][:32]
+                       if "registers" in ln or "spill" in ln
+                       or "warning" in ln][:64]
     emit("build", seconds=secs, libraries=sorted(paths), ptxas=ptxas,
          flags=" ".join(_build.NVCC_FLAGS))
 
@@ -222,7 +229,7 @@ def phase_kernel(device, seed: int, n_keys: int, n_queries: int) -> dict:
     q_np = make_queries(keys, n_queries, rng)
     q = torch.from_numpy(to_biased(q_np)).to(device)
     delta = buf.device_view(device)
-    results = []
+    results, levels = [], []
     for kind in ("radix", "cht"):
         sp = build_stacked_planes(_forced(plexes, kind), offs, device)
         check(sp is not None and sp.kind == kind, f"{kind} planes")
@@ -249,9 +256,41 @@ def phase_kernel(device, seed: int, n_keys: int, n_queries: int) -> dict:
                     emit("kernel", **row)
                     check(match and launches == (device.type == "cuda"),
                           f"kernel variant failed: {row}")
+        levels.append(kernel_levels(sp, kind, q, device))
         del sp
     return dict(variants=len(results),
-                max_abs_err=max(r["max_abs_err"] for r in results))
+                max_abs_err=max(r["max_abs_err"] for r in results),
+                levels=levels)
+
+
+def kernel_levels(sp, kind: str, q, device) -> dict:
+    """K1's summary probe over ``sp`` with the rule's number of levels and
+    with the other, in turns (rule, other, other, rule), in both spline
+    modes, the other held to the plain version."""
+    import torch
+    from repro_torch.kernels import stacked_lookup as SL
+    rule = sp.summary.levels
+    out = {}
+    for mode in ("count", "bisect"):
+        sp.static["mode"] = mode
+        times: dict = {1: [], 2: []}
+        for levels in (rule, 3 - rule, 3 - rule, rule):
+            sp.summary = dataclasses.replace(sp.summary, levels=levels)
+            if levels != rule:
+                got = SL.stacked_lookup(sp, "bisect", q, aux=True)
+                want = plain_chunked(sp, "bisect", q, None)
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"{kind} kernel with {levels} summary level(s) "
+                      f"differs from its plain version")
+            times[levels].append(device_ms(
+                lambda: SL.stacked_lookup(sp, "bisect", q), device))
+        out[mode] = {str(k): float(np.mean(v)) for k, v in times.items()}
+    row = dict(kind=kind, summary_levels=rule,
+               summary_bytes=sp.summary.nbytes,
+               probe_bytes_per_query=probe_model_bytes(rule),
+               ms_by_levels=out)
+    emit("kernel_levels", **row)
+    return row
 
 
 # ---------------------------------------------------------------- serve ----
@@ -266,16 +305,18 @@ def _kinds(snap) -> dict:
 
 class recorded_launches:
     """Within the block, every ``stacked_lookup`` call that serving makes
-    is passed through and its arguments kept in ``calls``: the served
-    request's own launches, replayed afterwards for device times and for
-    the comparison with the plain version."""
+    is passed through and its arguments kept in ``calls`` (planes, probe,
+    queries, delta, overlap): the served request's own launches, replayed
+    afterwards for device times and for the comparison with the plain
+    version."""
 
     def __enter__(self):
         from repro_torch.kernels import stacked_lookup as SL
         self.calls, self._orig = [], SL.stacked_lookup
 
         def record(sp, probe, q, delta=None, **kw):
-            self.calls.append((sp, probe, q, delta))
+            self.calls.append((sp, probe, q, delta,
+                               kw.get("overlap", False)))
             return self._orig(sp, probe, q, delta, **kw)
         SL.stacked_lookup = record
         return self
@@ -288,12 +329,18 @@ class recorded_launches:
 def replay(calls, device) -> dict:
     """The recorded launches again, on the same device tensors: each held
     against the plain version exactly (ranks, shard ids, window bases),
-    then both timed with CUDA events. Made after the main path's counts
-    were read, so these launches are not counted as the main path's."""
+    then both timed with CUDA events, the kernel's launches as served
+    (overlap included). Then, in turns, the kernel with every launch made
+    without overlap, with the key summary's other number of levels, and
+    with the spline searched by bisect where the planes say count.
+    Made after the main path's counts were read, so these launches are not
+    counted as the main path's."""
     import torch
     from repro_torch.kernels import stacked_lookup as SL
     err = 0
-    for sp, probe, q, delta in calls:
+    for sp, probe, q, delta, _ in calls:
+        # checked one launch at a time: its predecessor on the stream is the
+        # plain version, so no overlap
         got = SL.stacked_lookup(sp, probe, q, delta, aux=True)
         want = SL.stacked_lookup_plain(sp, probe, q, delta)
         err = max([err] + [int((g.long() - w.long()).abs().max())
@@ -302,13 +349,40 @@ def replay(calls, device) -> dict:
               f"kernel differs from its plain version on a served launch "
               f"of {q.numel()} queries over {sp.n_shards} shard(s)")
 
-    def run(fn):
-        return lambda: [fn(sp, probe, q, delta)
-                        for sp, probe, q, delta in calls]
-    return dict(max_abs_err=err,
-                kernel_ms=device_ms(run(SL.stacked_lookup), device, reps=3),
-                plain_ms=device_ms(run(SL.stacked_lookup_plain), device,
-                                   reps=1))
+    def served(overlap: bool = True):
+        return lambda: [SL.stacked_lookup(sp, probe, q, delta,
+                                          overlap=overlap and ov)
+                        for sp, probe, q, delta, ov in calls]
+    out = dict(max_abs_err=err, overlapped=sum(c[4] for c in calls),
+               kernel_ms=device_ms(served(), device, reps=3),
+               plain_ms=device_ms(lambda: [
+                   SL.stacked_lookup_plain(sp, probe, q, delta)
+                   for sp, probe, q, delta, _ in calls], device, reps=1))
+    if device.type != "cuda":
+        return out
+    planes = list({id(c[0]): c[0] for c in calls}.values())
+    rule = planes[0].summary.levels
+    modes = [sp.static["mode"] for sp in planes]
+    times: dict = {"no_overlap": [], rule: [out["kernel_ms"]],
+                   3 - rule: [], "spline_bisect": []}
+    for levels, overlap, spline in (
+            (rule, False, None), (3 - rule, True, None),
+            (rule, True, "bisect"), (rule, True, "bisect"),
+            (3 - rule, True, None), (rule, False, None),
+            (rule, True, None)):
+        for sp, mode in zip(planes, modes):
+            sp.summary = dataclasses.replace(sp.summary, levels=levels)
+            sp.static["mode"] = spline or mode
+        ms = device_ms(served(overlap), device, reps=3)
+        times["no_overlap" if not overlap else
+              "spline_bisect" if spline else levels].append(ms)
+    return dict(out, summary_levels=rule,
+                summary_bytes=sum(sp.summary.nbytes for sp in planes),
+                spline_modes=sorted(set(modes)),
+                ms_no_overlap=float(np.mean(times["no_overlap"])),
+                ms_spline_bisect=float(np.mean(times["spline_bisect"])),
+                ms_by_levels={str(k): float(np.mean(times[k]))
+                              for k in (1, 2)})
 
 
 def bound_bytes(snap, q: np.ndarray) -> int:
@@ -334,6 +408,58 @@ def bound_bytes(snap, q: np.ndarray) -> int:
         sectors += np.unique(np.concatenate([seg // 4, (seg + 1) // 4])).size
         sectors += np.unique(np.concatenate([seg // 8, (seg + 1) // 8])).size
     return q.size * (8 + 4) + 32 * sectors
+
+
+def probe_model_bytes(levels: int) -> int:
+    """DRAM bytes a query of the summary probe reads from planes beyond L2
+    in the model: one 64-byte data segment, and with two levels one 64-byte
+    segment of the 8th-key level before it; the summary's bisect is
+    counted as L2 hits. The planes' rows are multiples of 128 keys (and the
+    200M-key plane of 64), so no segment straddles a 64-byte boundary."""
+    return levels * 64
+
+
+def probe_levels_on_plane(dk, q_np: np.ndarray, device) -> dict:
+    """K4 on one large data plane (the service's 200M keys: 24 shards of
+    8.3M in one row) with a one-level and a two-level summary, in turns,
+    each held to the plain version and to searchsorted; bases from the
+    lower bound minus up to half a window, as the eps guarantee leaves
+    them. ``torch.take`` of the key at each answer beside them."""
+    import torch
+    from repro_torch.kernels import bounded_search as BS
+    from repro_torch.kernels.keys import to_biased
+    from repro_torch.kernels.planes import build_summary, summary_levels
+    window = 256
+    n = dk.numel()
+    qd = torch.from_numpy(to_biased(q_np)).to(device)
+    lb = torch.searchsorted(dk, qd)
+    g = torch.Generator(device=device).manual_seed(0)
+    off = torch.randint(0, window // 2, lb.shape, generator=g, device=device)
+    base = (lb - off).clamp(0, n - window).int()
+    ans = lb.clamp(max=n - 1)          # the key at each answer, in the plane
+    sm = build_summary(dk, n, 1)
+    times: dict = {1: [], 2: []}
+    for levels in (1, 2, 2, 1):
+        sm = dataclasses.replace(sm, levels=levels)
+        got = BS.bounded_search(dk, qd, base, window=window, summary=sm)
+        plain = chunked(lambda c, b: BS.bounded_search_plain(
+            dk, c, b, window=window, mode="bisect", summary=sm), qd, base)
+        check(torch.equal(got, plain) and torch.equal(got.long(), lb),
+              f"K4 on the {n}-key plane, {levels} level(s), differs from "
+              f"its plain version or from searchsorted")
+        times[levels].append(device_ms(lambda: BS.bounded_search(
+            dk, qd, base, window=window, summary=sm), device, reps=10))
+    out = dict(keys=n, queries=int(q_np.size), window=window,
+               summary_bytes=sm.nbytes, rule_levels=summary_levels(n),
+               ms_by_levels={str(k): float(np.mean(v))
+                             for k, v in times.items()},
+               ms_turns={str(k): v for k, v in times.items()},
+               probe_bytes_per_query={str(k): 16 + probe_model_bytes(k)
+                                      for k in (1, 2)},
+               answer_gather_ms=device_ms(lambda: torch.take(dk, ans),
+                                          device, reps=10))
+    emit("probe_levels", plane="service", **out)
+    return out
 
 
 def phase_serve(device, seed: int, n_keys: int, n_queries: int) -> dict:
@@ -398,6 +524,7 @@ def phase_serve(device, seed: int, n_keys: int, n_queries: int) -> dict:
         rec["library_ms"] = device_ms(
             lambda: torch.searchsorted(dk_sorted, qd), device, reps=3)
         emit("serve_request", **rec)
+    probe_big = probe_levels_on_plane(dk_sorted, requests[0][1], device)
     del dk_sorted
 
     def mean(key):
@@ -414,7 +541,22 @@ def phase_serve(device, seed: int, n_keys: int, n_queries: int) -> dict:
                    [r["request_ms"] for r in records], 99)),
                kernel_share_of_request=sum(r["kernel_ms"] for r in records)
                / (request_s * 1e3),
-               path="fused" if svc.fused else "per-shard")
+               path="fused" if svc.fused else "per-shard",
+               overlapped_launches=sum(r["overlapped"] for r in records))
+    if device.type == "cuda":
+        out.update(
+            summary_levels=records[0]["summary_levels"],
+            summary_bytes=records[0]["summary_bytes"],
+            probe_bytes_per_query=probe_model_bytes(
+                records[0]["summary_levels"]),
+            ms_no_overlap=mean("ms_no_overlap"),
+            ms_spline_bisect=mean("ms_spline_bisect"),
+            spline_modes=sorted({m for r in records
+                                 for m in r["spline_modes"]}),
+            ms_by_levels={k: float(np.mean([r["ms_by_levels"][k]
+                                            for r in records]))
+                          for k in ("1", "2")},
+            probe_200m=probe_big)
     emit("serve", **out)
     emit("yardstick", library="torch.searchsorted", library_ms=out[
         "library_ms"], queries=n_queries, keys=n_keys)
@@ -537,11 +679,11 @@ def index_times(dp, px, qd, q_np, base, device) -> dict:
              None),
             ("bounded_search",
              lambda: BS.bounded_search(pp.dk, qd, base, window=pp.window,
-                                       mode=BS.DEFAULT_PROBE),
-             lambda: chunked(lambda c, b: BS.probe_lower_bound(
-                 pp.dk, c, b.long(), window=pp.window,
-                 mode=BS.DEFAULT_PROBE),
-                 qd, base),
+                                       mode=BS.DEFAULT_PROBE,
+                                       summary=pp.summary),
+             lambda: chunked(lambda c, b: BS.bounded_search_plain(
+                 pp.dk, c, b, window=pp.window, mode=BS.DEFAULT_PROBE,
+                 summary=pp.summary), qd, base),
              lambda: torch.searchsorted(real, qd))):
         err = int((kern().long() - plain().long()).abs().max())
         check(err == 0, f"{name} differs from its plain version by {err}")
@@ -551,7 +693,43 @@ def index_times(dp, px, qd, q_np, base, device) -> dict:
             bound_ms=index_bound_bytes(px, q_np, name)
             / (PEAK_HBM_TBS * 1e12) * 1e3,
             library_ms=device_ms(lib, device, reps=10) if lib else None)
+    out["bounded_search"].update(probe_levels(pp, qd, base, device))
     return out
+
+
+def probe_levels(pp, qd, base, device) -> dict:
+    """K4 over ``pp`` with its summary's rule and with the other number of
+    levels, in turns (rule, other, other, rule), each held to the plain
+    version; the summary's bytes and the probe's bytes a query in the
+    model beside them, and the time of ``torch.take`` of one key at each
+    answer (one random 8-byte read a query: what the byte bound counts,
+    at the card's rate for scattered reads)."""
+    import torch
+    from repro_torch.kernels import bounded_search as BS
+    rule = pp.summary.levels
+    times: dict = {1: [], 2: []}
+    for levels in (rule, 3 - rule, 3 - rule, rule):
+        sm = dataclasses.replace(pp.summary, levels=levels)
+        if levels != rule:
+            got = BS.bounded_search(pp.dk, qd, base, window=pp.window,
+                                    summary=sm)
+            plain = chunked(lambda c, b: BS.bounded_search_plain(
+                pp.dk, c, b, window=pp.window, mode="bisect", summary=sm),
+                qd, base)
+            check(torch.equal(got, plain), f"K4 with {levels} summary "
+                  f"level(s) differs from its plain version")
+        times[levels].append(device_ms(lambda: BS.bounded_search(
+            pp.dk, qd, base, window=pp.window, summary=sm), device,
+            reps=10))
+    ans = BS.bounded_search(pp.dk, qd, base, window=pp.window,
+                            summary=pp.summary).long().clamp(
+                                max=pp.dk.numel() - 1)
+    return dict(summary_levels=rule, summary_bytes=pp.summary.nbytes,
+                probe_bytes_per_query=16 + probe_model_bytes(rule),
+                ms_by_levels={str(k): float(np.mean(v))
+                              for k, v in times.items()},
+                answer_gather_ms=device_ms(lambda: torch.take(pp.dk, ans),
+                                           device, reps=10))
 
 
 def phase_index(device, seed: int, n_keys: int, n_queries: int) -> dict:
@@ -643,6 +821,16 @@ def phase_index(device, seed: int, n_keys: int, n_queries: int) -> dict:
         out[name] = {k: (float(np.mean([r[k] for r in rows]))
                          if rows[0][k] is not None else None)
                      for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        if "ms_by_levels" in rows[0]:
+            out[name].update(
+                answer_gather_ms=float(np.mean([r["answer_gather_ms"]
+                                                for r in rows])),
+                summary_levels=rows[0]["summary_levels"],
+                summary_bytes=rows[0]["summary_bytes"],
+                probe_bytes_per_query=rows[0]["probe_bytes_per_query"],
+                ms_by_levels={k: float(np.mean([r["ms_by_levels"][k]
+                                                for r in rows]))
+                              for k in ("1", "2")})
         out[name].update(launches=launches[name], max_abs_err=max(
             [r["max_abs_err"] for r in rows] + [matrix["max_abs_err"][name]]))
     emit("index_summary", kernels=out)
@@ -680,10 +868,10 @@ def phase_index_matrix(device, px, q_np) -> dict:
             seg_ms = device_ms(lambda: SEG.window_base(pp, qd), device)
             for probe in ("count", "bisect"):
                 got = BS.bounded_search(pp.dk, qd, base, window=pp.window,
-                                        mode=probe)
-                plain = chunked(lambda c, b: BS.probe_lower_bound(
-                    pp.dk, c, b.long(), window=pp.window, mode=probe),
-                    qd, base).int()
+                                        mode=probe, summary=pp.summary)
+                plain = chunked(lambda c, b: BS.bounded_search_plain(
+                    pp.dk, c, b, window=pp.window, mode=probe,
+                    summary=pp.summary), qd, base)
                 pe = int((got.long() - plain.long()).abs().max())
                 err["bounded_search"] = max(err["bounded_search"], pe)
                 ranks = finalize_indices(got, q_np.size, pp.n_real)
@@ -697,7 +885,7 @@ def phase_index_matrix(device, px, q_np) -> dict:
                            segment_ms=seg_ms,
                            probe_ms=device_ms(lambda: BS.bounded_search(
                                pp.dk, qd, base, window=pp.window,
-                               mode=probe), device))
+                               mode=probe, summary=pp.summary), device))
                 emit("index_matrix", **row)
                 cases += 1
                 check(e == 0 and pe == 0 and row["matches_searchsorted"],
@@ -1332,6 +1520,8 @@ def main(argv=None) -> int:
     sources = {"radix_segment_lookup": csrc + "segment_lookup.cu",
                "cht_segment_lookup": csrc + "segment_lookup.cu",
                "bounded_search": csrc + "bounded_search.cu"}
+    summary_keys = ("summary_levels", "summary_bytes",
+                    "probe_bytes_per_query", "ms_by_levels")
     print(json.dumps({"kernels": [{
         "name": "stacked_lookup", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stacked_lookup.cu",
@@ -1340,13 +1530,23 @@ def main(argv=None) -> int:
         "max_abs_err": max(kern["max_abs_err"], serve["max_abs_err"]),
         "ms": serve["kernel_ms"], "plain_ms": serve["plain_ms"],
         "bound_ms": serve["bound_ms"], "bound_by": "bytes",
-        "library_ms": serve["library_ms"], "matches_plain": True}] + [{
+        "library_ms": serve["library_ms"], "matches_plain": True,
+        "overlapped_launches": serve["overlapped_launches"],
+        "ms_no_overlap": serve["ms_no_overlap"],
+        "spline_modes": serve["spline_modes"],
+        "ms_spline_bisect": serve["ms_spline_bisect"],
+        **{k: serve[k] for k in summary_keys},
+        "kernel_phase": kern["levels"]}] + [{
         "name": name, "route": "cuda", "source": sources[name],
         "replaces": replaces[name], "launches": k["launches"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": k["library_ms"],
-        "matches_plain": True} for name, k in index.items()] + [{
+        "matches_plain": True,
+        **{f: k[f] for f in summary_keys + ("answer_gather_ms",) if f in k},
+        **({"service_plane": serve["probe_200m"]}
+           if name == "bounded_search" else {})}
+        for name, k in index.items()] + [{
         "name": "flash_attention", "route": "cuda",
         "source": csrc + prefill["kernel"] + ".cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",

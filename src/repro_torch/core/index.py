@@ -212,19 +212,21 @@ class Snapshot:
         if cfg not in self._stacked:
             self._stacked[cfg] = StackedTorchPlex.from_plexes(
                 self.shards, self.offsets, device=dev, block=block,
-                probe=probe)
+                probe=probe, summary_keys=self.n_keys)
         return self._stacked[cfg]
 
     def shard_impl(self, s: int, *, device=None, block: int = 512,
                    probe: str | None = None):
         """Single-shard stacked impl of shard ``s`` (row offset 0; a lone
         shard always unifies) — the per-shard path when ``stacked_impl``
-        is ``None``. Cached per configuration."""
+        is ``None``. Cached per configuration. Every shard's planes share
+        the card, so the key summary's levels follow the whole snapshot's
+        size."""
         from ..kernels.stacked_lookup import StackedTorchPlex
         dev = self.device if device is None else resolve_device(device)
         cfg = (int(s), dev, int(block), probe)
         if cfg not in self._stacked:
             self._stacked[cfg] = StackedTorchPlex.from_plexes(
                 [self.shards[s]], np.zeros(1, dtype=np.int64), device=dev,
-                block=block, probe=probe)
+                block=block, probe=probe, summary_keys=self.n_keys)
         return self._stacked[cfg]

@@ -32,8 +32,8 @@ _C_VOID_P = ctypes.c_void_p
 _SIGNATURES = {
     "stacked_lookup": {
         "plex_stacked_lookup": ([_C_VOID_P, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_int, _C_VOID_P],
-                                ctypes.c_int),
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 _C_VOID_P], ctypes.c_int),
         "plex_error_string": ([ctypes.c_int], ctypes.c_char_p),
         "plex_params_size": ([], ctypes.c_int),
     },

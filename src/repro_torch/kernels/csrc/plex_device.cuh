@@ -78,19 +78,20 @@ template <bool BISECT>
 __device__ __forceinline__ int32_t spline_predecessor(
     const int64_t* sk, int32_t ns, int64_t q, int32_t lo, int32_t hi,
     int32_t width, int32_t trips) {
-  if (!BISECT) {
+  if constexpr (!BISECT) {
     const int32_t last = min(hi - lo, width - 1);
     int32_t cnt = 0;
     for (int32_t j = 0; j <= last; ++j) cnt += (sk[min(lo + j, ns - 1)] <= q);
     return lo + max(cnt - 1, 0);
+  } else {
+    for (int32_t t = 0; t < trips; ++t) {
+      const int32_t mid = (lo + hi + 1) >> 1;
+      const bool go = sk[min(mid, ns - 1)] <= q;
+      lo = go ? mid : lo;
+      hi = go ? hi : mid - 1;
+    }
+    return lo;
   }
-  for (int32_t t = 0; t < trips; ++t) {
-    const int32_t mid = (lo + hi + 1) >> 1;
-    const bool go = sk[min(mid, ns - 1)] <= q;
-    lo = go ? mid : lo;
-    hi = go ? hi : mid - 1;
-  }
-  return lo;
 }
 
 // Window base of the eps probe: float32 interpolation at segment `seg`
@@ -115,27 +116,129 @@ __device__ __forceinline__ int32_t segment_base(const int64_t* sk,
   return min(max(base, 0), base_max);
 }
 
-// Eps-window probe: first index in [base, base + window] whose key is >= q
-// (base + window when every window key is < q), by a count over the window
-// or by `trips` = bit_length(window) bisect rounds; identical results.
+// Eps-window probe as the reference writes it: first index in
+// [base, base + window] whose key is >= q (base + window when every window
+// key is < q), by a count over the window or by `trips` =
+// bit_length(window) bisect rounds; identical results. K1 and K4 run the
+// count form; the bisect form serves K1's delta fold (at most 4096 keys,
+// which stay in L2). Their bisect form is summary_lower_bound below.
 template <bool BISECT>
 __device__ __forceinline__ int64_t window_lower_bound(const int64_t* dk,
                                                       int64_t q, int64_t base,
                                                       int32_t window,
                                                       int32_t trips) {
-  if (!BISECT) {
+  if constexpr (!BISECT) {
     const int64_t* w = dk + base;
     int32_t c = 0;
     for (int32_t j = 0; j < window; ++j) c += (w[j] < q);
     return base + c;
+  } else {
+    int64_t lo = base;
+    int64_t hi = base + window - 1;
+    for (int32_t t = 0; t < trips; ++t) {
+      const int64_t mid = (lo + hi) >> 1;
+      const bool ge = !(dk[mid] < q);
+      hi = ge ? mid : hi;
+      lo = ge ? lo : mid + 1;
+    }
+    return lo;
   }
-  int64_t lo = base;
-  int64_t hi = base + window - 1;
-  for (int32_t t = 0; t < trips; ++t) {
-    const int64_t mid = (lo + hi) >> 1;
-    const bool ge = !(dk[mid] < q);
-    hi = ge ? mid : hi;
-    lo = ge ? lo : mid + 1;
+}
+
+// ---- the summary probe (K1's and K4's bisect form) -------------------------
+//
+// The summary of a data-plane row holds its every 8th key (level 1) and its
+// every 64th key (level 2), each sampled from the row's start. The probe
+// bisects the window's samples, which an L2 evict_last policy keeps in L2,
+// and then reads the one 8-key (64-byte) segment of the data plane that the
+// last sample below q starts (two levels: the 64-byte segment of level 1
+// first), evict-first, so the data stream does not push the summary out.
+
+constexpr int kSegment = 8;  // keys a sample stands for: 64 bytes
+
+// L2 policy for the summary's loads: evict its lines last.
+__device__ __forceinline__ uint64_t summary_policy() {
+  uint64_t pol;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
+}
+
+__device__ __forceinline__ int64_t load_kept(const int64_t* p, uint64_t pol) {
+  int64_t v;
+  asm("ld.global.nc.L2::cache_hint.b64 %0, [%1], %2;"
+      : "=l"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+// Largest i in [lo, hi] with s[i] < q, else lo - 1: a bisect over samples
+// kept in L2 (at most bit_length(hi - lo + 1) trips).
+__device__ __forceinline__ int64_t last_sample_below(const int64_t* s,
+                                                     int64_t lo, int64_t hi,
+                                                     int64_t q, uint64_t pol) {
+  int64_t a = lo - 1;
+  int64_t b = hi;
+  while (a < b) {
+    const int64_t mid = (a + b + 1) >> 1;
+    if (load_kept(s + mid, pol) < q) a = mid;
+    else b = mid - 1;
   }
-  return lo;
+  return a;
+}
+
+// #{j in [lo, hi) : plane[j] < q} for [lo, hi) inside the segment
+// [start, start + 8) of a `len`-entry row: a whole, 16-byte aligned segment
+// is read as four 16-byte evict-first loads, a partial one key by key.
+__device__ __forceinline__ int32_t count_below_in_segment(
+    const int64_t* plane, int64_t start, int64_t len, int64_t lo, int64_t hi,
+    int64_t q) {
+  if (lo >= hi) return 0;
+  int32_t c = 0;
+  const int64_t* seg = plane + start;
+  if (start + kSegment <= len &&
+      (reinterpret_cast<uintptr_t>(seg) & 15) == 0) {
+    const longlong2* v = reinterpret_cast<const longlong2*>(seg);
+#pragma unroll
+    for (int k = 0; k < kSegment / 2; ++k) {
+      const longlong2 w = __ldcs(v + k);
+      const int64_t j = start + 2 * k;
+      c += (j >= lo && j < hi && w.x < q);
+      c += (j + 1 >= lo && j + 1 < hi && w.y < q);
+    }
+  } else {
+    for (int64_t j = lo; j < hi; ++j)
+      c += (__ldcs(reinterpret_cast<const long long*>(plane + j)) < q);
+  }
+  return c;
+}
+
+// First row-local index in [base, base + window] whose key is >= q, as
+// window_lower_bound gives it. `dk` is the query's data-plane row of `n_row`
+// keys; `s1`, `s2` its summary rows (`n1` level-1 samples a row). LEVELS 1:
+// bisect the level-1 samples of the window (at most ceil(window / 8), all in
+// L2), then one data segment. LEVELS 2: bisect the level-2 samples, count in
+// the level-1 segment the last one starts, then one data segment. When no
+// sample is below q, the segment taken is the one that ends at the window's
+// first sample; the sample after the segment is >= q, so no other key is
+// needed.
+template <int LEVELS>
+__device__ __forceinline__ int64_t summary_lower_bound(
+    const int64_t* dk, const int64_t* s1, const int64_t* s2, int64_t n_row,
+    int64_t n1, int64_t q, int64_t base, int32_t window, uint64_t pol) {
+  const int64_t last = base + window - 1;
+  const int64_t i0 = (base + kSegment - 1) / kSegment;
+  const int64_t i1 = last / kSegment;
+  int64_t k1;
+  if (LEVELS == 1) {
+    k1 = last_sample_below(s1, i0, i1, q, pol);
+  } else {
+    constexpr int64_t kStride2 = kSegment * kSegment;
+    const int64_t k2 = last_sample_below(
+        s2, (base + kStride2 - 1) / kStride2, last / kStride2, q, pol);
+    const int64_t lo = max(k2 * kSegment, i0);
+    const int64_t hi = min(k2 * kSegment + kSegment, i1 + 1);
+    k1 = lo - 1 + count_below_in_segment(s1, k2 * kSegment, n1, lo, hi, q);
+  }
+  const int64_t lo = max(k1 * kSegment, base);
+  const int64_t hi = min(k1 * kSegment + kSegment, base + window);
+  return lo + count_below_in_segment(dk, k1 * kSegment, n_row, lo, hi, q);
 }

@@ -4,27 +4,47 @@
 // (body _kernel_body -> jnp_lookup._stacked_pipeline + delta_rank_adjust).
 // Per query: route to a shard -> radix-table or CHT window over the spline
 // points -> spline predecessor (count or bisect) -> float32 interpolation ->
-// eps-window probe of the data keys (count or bisect) -> clamp to the shard's
-// real key count + its global row offset -> (+ delta fold when FOLD).
+// eps-window probe of the data keys (count, or the summary probe as the
+// bisect form) -> clamp to the shard's real key count + its global row
+// offset -> (+ delta fold when FOLD).
 //
-// What bounds it: bytes gathered per query. Each query reads its own 8-byte
-// key and writes a 4-byte rank, but in between it gathers from planes far
-// larger than any cache: a few 4-byte table or CHT cells, one to ~10 8-byte
-// spline keys (bisect) or up to the window width (count), two spline points
-// with their ranks for the interpolation, and then the data probe: ~9 8-byte
-// keys by bisect over a 256-key window at eps 64, or all 256 by count. Every
-// gather is a dependent, uncoalesced 32-byte sector read from device memory
-// (neighbouring threads hold unrelated keys), so the kernel is latency- and
-// sector-bound rather than FLOP-bound; the arithmetic is a few dozen integer
-// ops and five float ops per query.
+// What bounds it: bytes gathered per query, and on the serving path the
+// launches. Each query reads its own 8-byte key and writes a 4-byte rank,
+// but in between it gathers from planes far larger than any cache: a few
+// table or CHT cells, spline keys and ranks, and then the data probe. The
+// reference's bisect probe read ~9 dependent keys in a 2 KB window, six or
+// seven distinct DRAM sectors a query. And at 200M keys the service's mixed
+// radix/CHT shards do not unify, so a request of 2^20 queries is 26 launches
+// of ~40k queries, each about 15% of the card's thread slots and as long as
+// its slowest query's chain of dependent gathers, one after the other:
+// 0.316 ms a request, 24x its byte bound (NVIDIA H100 80GB HBM3, 700 W).
 //
-// What the design does about it: one thread per query with no shared state,
-// so the card keeps as many queries in flight as its registers allow and
-// hides gather latency by occupancy; every per-shard scalar is read through
-// the read-only path (__ldg); the shard-minima, geometry and table planes are
-// small and stay in L1/L2; bisect reads log2(width) keys where count reads
-// width of them. The Pallas kernel loaded every plane as a whole VMEM block;
-// that was a TPU limit and is not carried over: planes stay in global memory.
+// What the design does about it:
+// - the probe is plex_device.cuh's summary probe: a bisect over the shard
+//   row's key-summary samples, kept in L2 by an evict_last policy, then one
+//   64-byte evict-first segment of the data plane (with two summary levels,
+//   where the index's summary outgrows L2, one 64-byte segment of the
+//   8th-key level first);
+// - programmatic dependent launch: every block runs
+//   griddepcontrol.launch_dependents at entry, and a launch whose
+//   predecessor on the stream is a K1 launch of the same dispatch is made
+//   with cudaLaunchAttributeProgrammaticStreamSerialization, so its blocks
+//   start while the previous launch's last queries are in flight. The
+//   launches of a dispatch read only planes no launch writes and each writes
+//   its own output, so nothing waits for data. Each thread ends with
+//   griddepcontrol.wait (a no-op without a predecessor in flight), so a
+//   launch completes only after the one it overlapped: whatever the stream
+//   runs next still sees every launch before it complete;
+// - one thread per query with no shared state, per-shard scalars through
+//   the read-only path (__ldg); the shard-minima, geometry and table planes
+//   are small and stay in L1/L2. The Pallas kernel loaded every plane as a
+//   whole VMEM block; that was a TPU limit and is not carried over.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): a service
+// request of 2^20 queries over 200M keys in 26 launches takes 0.106 ms
+// (two summary levels; 0.238 ms without overlap, 0.120 ms with one level,
+// 0.316 ms before this design); one launch of 2^20 queries over 16M keys
+// in two shards 0.077 ms with a bisect spline search (0.145-0.155 before).
 //
 // Bit-exactness with the reference: the device functions of plex_device.cuh
 // (shared with K2-K4) round the interpolation exactly as the reference does.
@@ -54,18 +74,21 @@ struct PlexParams {
   const int32_t* delta;
   const int64_t* dkeys;
   const int32_t* dcum;
+  const int64_t* s1;  // key summary level 1: every 8th key of each dk row
+  const int64_t* s2;  // key summary level 2: every 64th key of each dk row
   int32_t* out;
   int32_t* sid_out;   // nullable: routed shard id per query
   int32_t* base_out;  // nullable: local eps-window base per query
   int64_t n_q;
   int64_t n_spline_max;
   int64_t n_data_max;
+  int64_t n1;            // level-1 summary samples a row
+  int64_t n2;            // level-2 summary samples a row
   int32_t n_shards;
   int32_t eps_eff;
   int32_t window;
   int32_t search_width;  // spline window the count mode covers
   int32_t search_trips;  // bisect trips over the spline window
-  int32_t probe_trips;   // bit_length(window)
   int32_t r;             // CHT radix bits
   int32_t levels;        // CHT levels (deepest shard)
   int32_t cap;           // delta capacity (FOLD only)
@@ -74,100 +97,131 @@ struct PlexParams {
 
 enum { kRadix = 0, kCht = 1 };
 
-template <int KIND, bool SPLINE_BISECT, bool PROBE_BISECT, bool FOLD>
+// PROBE 0: the count over the window; 1, 2: the summary probe, that many
+// levels.
+template <int KIND, bool SPLINE_BISECT, int PROBE, bool FOLD>
 __global__ void __launch_bounds__(256)
 stacked_lookup_kernel(const PlexParams p) {
+  // the next launch of the dispatch may start its blocks now
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= p.n_q) return;
-  const int64_t q = p.q[i];
+  if (i < p.n_q) {
+    const int64_t q = __ldcs(reinterpret_cast<const long long*>(p.q) + i);
 
-  // 1. route: #{shard minima <= q} - 1, clipped to [0, S - 1]
-  int32_t s = 0;
-  if (p.n_shards > 1) {
-    int32_t cnt = 0;
-    for (int32_t j = 0; j < p.n_shards; ++j) cnt += (__ldg(p.shard_min + j) <= q);
-    s = min(max(cnt - 1, 0), p.n_shards - 1);
+    // 1. route: #{shard minima <= q} - 1, clipped to [0, S - 1]
+    int32_t s = 0;
+    if (p.n_shards > 1) {
+      int32_t cnt = 0;
+      for (int32_t j = 0; j < p.n_shards; ++j) cnt += (__ldg(p.shard_min + j) <= q);
+      s = min(max(cnt - 1, 0), p.n_shards - 1);
+    }
+    const int32_t ns = __ldg(p.n_spline + s);
+    const int64_t srow = static_cast<int64_t>(s) * p.n_spline_max;
+
+    // 2. window [lo, hi] of local spline indices
+    int32_t lo, hi;
+    if (KIND == kRadix) {
+      table_window(p.table + __ldg(p.table_off + s),
+                   radix_prefix_wrapped(q, __ldg(p.lmin + s), __ldg(p.shift + s),
+                                        __ldg(p.p_max + s)),
+                   lo, hi);
+    } else {
+      lo = cht_descend(p.cells + __ldg(p.cells_off + s), q, p.r, p.levels);
+      hi = min(lo + __ldg(p.delta + s), ns - 1);
+    }
+
+    // 3. spline predecessor: largest i in [lo, hi] with sk[i] <= q
+    const int32_t seg = spline_predecessor<SPLINE_BISECT>(
+        p.sk + srow, ns, q, lo, hi, p.search_width, p.search_trips);
+
+    // 4. float32 interpolation -> window base
+    const int32_t base = segment_base(p.sk + srow, p.spos + srow, ns, q, seg,
+                                      p.eps_eff,
+                                      static_cast<int32_t>(p.n_data_max - p.window));
+
+    // 5. eps-window probe: first index in [base, base + window] with key >= q
+    const int64_t* drow = p.dk + static_cast<int64_t>(s) * p.n_data_max;
+    int64_t got;
+    if (PROBE == 0) {
+      got = window_lower_bound<false>(drow, q, base, p.window, 0);
+    } else {
+      got = summary_lower_bound<PROBE>(
+          drow, p.s1 + static_cast<int64_t>(s) * p.n1,
+          p.s2 + static_cast<int64_t>(s) * p.n2, p.n_data_max, p.n1, q, base,
+          p.window, summary_policy());
+    }
+
+    // 6. clamp to the shard's real keys, add its global row offset
+    const int64_t nr = __ldg(p.n_real + s);
+    int32_t res = static_cast<int32_t>(got < nr ? got : nr) + __ldg(p.row_off + s);
+
+    // 7. merged lookup: + cum0[# delta keys < q]
+    if (FOLD)
+      res += __ldg(p.dcum + window_lower_bound<true>(p.dkeys, q, 0, p.cap,
+                                                      p.delta_trips));
+
+    __stcs(p.out + i, res);
+    if (p.sid_out) p.sid_out[i] = s;
+    if (p.base_out) p.base_out[i] = base;
   }
-  const int32_t ns = __ldg(p.n_spline + s);
-  const int64_t srow = static_cast<int64_t>(s) * p.n_spline_max;
-
-  // 2. window [lo, hi] of local spline indices
-  int32_t lo, hi;
-  if (KIND == kRadix) {
-    table_window(p.table + __ldg(p.table_off + s),
-                 radix_prefix_wrapped(q, __ldg(p.lmin + s), __ldg(p.shift + s),
-                                      __ldg(p.p_max + s)),
-                 lo, hi);
-  } else {
-    lo = cht_descend(p.cells + __ldg(p.cells_off + s), q, p.r, p.levels);
-    hi = min(lo + __ldg(p.delta + s), ns - 1);
-  }
-
-  // 3. spline predecessor: largest i in [lo, hi] with sk[i] <= q
-  const int32_t seg = spline_predecessor<SPLINE_BISECT>(
-      p.sk + srow, ns, q, lo, hi, p.search_width, p.search_trips);
-
-  // 4. float32 interpolation -> window base
-  const int32_t base = segment_base(p.sk + srow, p.spos + srow, ns, q, seg,
-                                    p.eps_eff,
-                                    static_cast<int32_t>(p.n_data_max - p.window));
-
-  // 5. eps-window probe: first index in [base, base + window] with key >= q
-  const int64_t drow = static_cast<int64_t>(s) * p.n_data_max;
-  const int64_t got = window_lower_bound<PROBE_BISECT>(
-      p.dk + drow, q, base, p.window, p.probe_trips);
-
-  // 6. clamp to the shard's real keys, add its global row offset
-  const int64_t nr = __ldg(p.n_real + s);
-  int32_t res = static_cast<int32_t>(got < nr ? got : nr) + __ldg(p.row_off + s);
-
-  // 7. merged lookup: + cum0[# delta keys < q]
-  if (FOLD)
-    res += __ldg(p.dcum + window_lower_bound<true>(p.dkeys, q, 0, p.cap,
-                                                    p.delta_trips));
-
-  p.out[i] = res;
-  if (p.sid_out) p.sid_out[i] = s;
-  if (p.base_out) p.base_out[i] = base;
+  // complete only after the launch this one overlapped (none: no wait)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
-template <int KIND, bool SB, bool PB, bool FOLD>
-static void launch(const PlexParams& p, cudaStream_t stream) {
+template <int KIND, bool SB, int PROBE, bool FOLD>
+static cudaError_t launch(const PlexParams& p, int overlap, cudaStream_t stream) {
   constexpr int kThreads = 256;
-  const int64_t blocks = (p.n_q + kThreads - 1) / kThreads;
-  stacked_lookup_kernel<KIND, SB, PB, FOLD>
-      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((p.n_q + kThreads - 1) / kThreads));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = overlap ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, stacked_lookup_kernel<KIND, SB, PROBE, FOLD>, p);
 }
 
-template <int KIND, bool SB, bool PB>
-static void pick_fold(const PlexParams& p, int fold, cudaStream_t st) {
-  if (fold) launch<KIND, SB, PB, true>(p, st);
-  else launch<KIND, SB, PB, false>(p, st);
+template <int KIND, bool SB, int PROBE>
+static cudaError_t pick_fold(const PlexParams& p, int fold, int overlap,
+                             cudaStream_t st) {
+  return fold ? launch<KIND, SB, PROBE, true>(p, overlap, st)
+              : launch<KIND, SB, PROBE, false>(p, overlap, st);
 }
 
 template <int KIND, bool SB>
-static void pick_probe(const PlexParams& p, int probe_bisect, int fold, cudaStream_t st) {
-  if (probe_bisect) pick_fold<KIND, SB, true>(p, fold, st);
-  else pick_fold<KIND, SB, false>(p, fold, st);
+static cudaError_t pick_probe(const PlexParams& p, int probe, int fold,
+                              int overlap, cudaStream_t st) {
+  if (probe == 1) return pick_fold<KIND, SB, 1>(p, fold, overlap, st);
+  if (probe == 2) return pick_fold<KIND, SB, 2>(p, fold, overlap, st);
+  return pick_fold<KIND, SB, 0>(p, fold, overlap, st);
 }
 
 template <int KIND>
-static void pick_spline(const PlexParams& p, int spline_bisect, int probe_bisect,
-                        int fold, cudaStream_t st) {
-  if (spline_bisect) pick_probe<KIND, true>(p, probe_bisect, fold, st);
-  else pick_probe<KIND, false>(p, probe_bisect, fold, st);
+static cudaError_t pick_spline(const PlexParams& p, int spline_bisect, int probe,
+                               int fold, int overlap, cudaStream_t st) {
+  return spline_bisect ? pick_probe<KIND, true>(p, probe, fold, overlap, st)
+                       : pick_probe<KIND, false>(p, probe, fold, overlap, st);
 }
 
 extern "C" {
 
 // Launches one instantiation on `stream` (no sync, no allocation) and
-// returns cudaGetLastError() — 0 when the launch was accepted.
+// returns the launch's error, else cudaGetLastError() — 0 when the launch
+// was accepted. `probe`: 0 the count form, 1 or 2 the summary probe over
+// that many levels. `overlap`: the launch may start while its predecessor
+// on the stream, a launch of the same dispatch, is still running.
 int plex_stacked_lookup(const PlexParams* p, int cht, int spline_bisect,
-                        int probe_bisect, int fold, void* stream) {
+                        int probe, int fold, int overlap, void* stream) {
   if (p->n_q <= 0) return 0;
+  if (probe < 0 || probe > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cht) pick_spline<kCht>(*p, spline_bisect, probe_bisect, fold, st);
-  else pick_spline<kRadix>(*p, spline_bisect, probe_bisect, fold, st);
+  const cudaError_t err =
+      cht ? pick_spline<kCht>(*p, spline_bisect, probe, fold, overlap, st)
+          : pick_spline<kRadix>(*p, spline_bisect, probe, fold, overlap, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

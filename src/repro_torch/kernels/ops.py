@@ -10,7 +10,8 @@ on the device; ``DevicePlex.lookup`` runs the batched pipeline
 
 with one launch of each kernel per call on a CUDA device, whatever the
 batch size. The reference gathers the ``[B, W]`` data windows in XLA between
-its two kernels; here K4 reads the data plane itself. The reference's
+its two kernels; here K4 reads the data plane itself, through the planes'
+key summary. The reference's
 deprecated ``lookup_planes`` shim is not ported.
 """
 from __future__ import annotations
@@ -56,5 +57,6 @@ class DevicePlex:
         qp, b = pad_queries(q, self.block)
         qd = torch.from_numpy(to_biased(qp)).to(pp.device)
         out = bounded_search(pp.dk, qd, window_base(pp, qd),
-                             window=pp.window, mode=DEFAULT_PROBE)
+                             window=pp.window, mode=DEFAULT_PROBE,
+                             summary=pp.summary)
         return finalize_indices(out, b, pp.n_real)

@@ -17,6 +17,14 @@ Single index (``build_planes`` -> ``PlexPlanes``, consumed by
 ``ops.DevicePlex``): one spline-key plane, one rank plane, one data plane and
 the layer array (radix ``table`` or CHT ``cells``) of one PLEX.
 
+Key summary (``KeySummary``, both layouts): every 8th and every 64th key of
+each data-plane row, sampled from the row's start and built on the device by
+a strided copy whenever the planes are. It is derived, not one of the
+reference's planes: the eps probe bisects it in L2 and then reads the one
+64-byte segment of the data plane that holds the answer
+(``bounded_search.summary_lower_bound``). ``summary_levels`` says how many of
+its levels the probe descends.
+
 Stacked layout (multi-shard serving): per-shard planes are padded to the max
 shard size and stored flattened shard-major (``[S * n_spline_max]`` /
 ``[S * n_data_max]``), so a query routed to shard ``s`` gathers at
@@ -41,6 +49,13 @@ from ..core.radix_table import RadixTable
 from .keys import MAX_BIASED, to_biased
 
 COUNT_MODE_MAX = 512    # windows at most this wide use compare-and-count
+# keys a summary sample stands for: one 64-byte segment (kSegment in
+# csrc/plex_device.cuh)
+SUMMARY_STRIDE = 8
+# the card's L2 (H100: 50 MB). A one-level summary (8 B per 8 keys) is kept
+# only while it fits in half of it, so that it stays resident beside the
+# spline planes and the data segments streaming past (PERF.md)
+L2_BYTES = 50 * 10 ** 6
 
 
 def round_up(x: int, m: int) -> int:
@@ -65,6 +80,55 @@ def finalize_indices(out, n_queries: int, n_real: int) -> np.ndarray:
     if isinstance(out, torch.Tensor):
         out = out.cpu().numpy()
     return np.minimum(np.asarray(out)[:n_queries].astype(np.int64), n_real)
+
+
+def summary_levels(n_keys: int) -> int:
+    """Summary levels the eps probe descends over an index of ``n_keys``
+    keys, all of whose planes share the card's L2: one (every 8th key,
+    ``n_keys`` bytes) while that fits in half of L2, else two (every 64th
+    key first, then one 64-byte segment of the 8th-key level)."""
+    return 1 if n_keys <= L2_BYTES // 2 else 2
+
+
+@dataclasses.dataclass(frozen=True)
+class KeySummary:
+    """Every ``SUMMARY_STRIDE``-th key (``l1``) and every
+    ``SUMMARY_STRIDE ** 2``-th key (``l2``) of each ``row``-key row of a
+    data plane, each row sampled from its own start and stored row-major
+    (``[rows * ceil(row / 8)]``, ``[rows * ceil(row / 64)]``); ``levels``
+    is how many of them the probe descends (``summary_levels``)."""
+    l1: torch.Tensor          # biased int64
+    l2: torch.Tensor          # biased int64
+    row: int
+    levels: int
+
+    @property
+    def n1(self) -> int:
+        """Level-1 samples a row."""
+        return -(-self.row // SUMMARY_STRIDE)
+
+    @property
+    def n2(self) -> int:
+        """Level-2 samples a row."""
+        return -(-self.row // SUMMARY_STRIDE ** 2)
+
+    @property
+    def nbytes(self) -> int:
+        return (self.l1.numel() + self.l2.numel()) * 8
+
+
+def build_summary(dk: torch.Tensor, row: int, levels: int) -> KeySummary:
+    """The summary of the flat data plane ``dk`` of ``row``-key rows, by a
+    strided copy on ``dk``'s device."""
+    if levels not in (1, 2):
+        raise ValueError(f"a summary has 1 or 2 levels, not {levels}")
+    if row < 1 or dk.numel() % row:
+        raise ValueError(f"{dk.numel()} keys are not rows of {row}")
+    rows = dk.view(-1, row)
+    return KeySummary(
+        l1=rows[:, ::SUMMARY_STRIDE].contiguous().view(-1),
+        l2=rows[:, ::SUMMARY_STRIDE ** 2].contiguous().view(-1),
+        row=int(row), levels=int(levels))
 
 
 @dataclasses.dataclass
@@ -171,6 +235,7 @@ class PlexPlanes:
     static: dict[str, Any]
     eps_eff: int
     window: int
+    summary: KeySummary       # derived from dk on the device
 
     @property
     def device(self) -> torch.device:
@@ -178,8 +243,9 @@ class PlexPlanes:
 
 
 def build_planes(px: PLEX, device) -> PlexPlanes:
-    """Host PLEX -> ``PlexPlanes`` on ``device``. A one-point spline is
-    doubled (see ``_host_planes``), so ``n_spline >= 2``."""
+    """Host PLEX -> ``PlexPlanes`` on ``device``, with the data plane's key
+    summary. A one-point spline is doubled (see ``_host_planes``), so
+    ``n_spline >= 2``."""
     hp = _host_planes(px)
     if hp.kind == "radix":
         layer = {"table": hp.layer_np["table"].astype(np.int32)}
@@ -192,11 +258,14 @@ def build_planes(px: PLEX, device) -> PlexPlanes:
 
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return PlexPlanes(sk=put(hp.sk), spos=put(hp.spos), dk=put(hp.dk),
+    dk = put(hp.dk)
+    return PlexPlanes(sk=put(hp.sk), spos=put(hp.spos), dk=dk,
                       n_data=hp.n_data, n_real=hp.n_real, kind=hp.kind,
                       layer_arrays={k: put(v) for k, v in layer.items()},
                       static=dict(hp.static), eps_eff=hp.eps_eff,
-                      window=hp.window)
+                      window=hp.window,
+                      summary=build_summary(dk, hp.n_data,
+                                            summary_levels(hp.n_data)))
 
 
 @dataclasses.dataclass
@@ -261,6 +330,7 @@ class StackedPlanes:
     static: dict[str, Any]
     eps_eff: int              # max over shards
     window: int               # max over shards
+    summary: KeySummary       # derived from dk on the device, row by row
 
     @property
     def device(self) -> torch.device:
@@ -269,10 +339,14 @@ class StackedPlanes:
 
 def build_stacked_planes(plexes: Sequence[PLEX], row_off: np.ndarray,
                          device, host_planes: Sequence[_HostPlanes] | None
-                         = None) -> StackedPlanes | None:
+                         = None, summary_keys: int | None = None
+                         ) -> StackedPlanes | None:
     """Fuse shard-local PLEX indexes into one ``StackedPlanes`` on
     ``device``, or ``None`` when they cannot be unified (see the module
-    docstring). ``row_off[s]`` is shard ``s``'s global key offset."""
+    docstring). ``row_off[s]`` is shard ``s``'s global key offset.
+    ``summary_keys`` is the size of the index whose planes share the card
+    with these (a service's whole snapshot when each shard has planes of its
+    own); it sets the summary's levels and defaults to these planes' keys."""
     # the gates read statics only: no bulk plane is built for shards that
     # do not unify
     hss = (list(host_planes) if host_planes is not None
@@ -351,12 +425,15 @@ def build_stacked_planes(plexes: Sequence[PLEX], row_off: np.ndarray,
                       mode="count" if delta_max + 1 <= COUNT_MODE_MAX
                       else "bisect")
 
+    dk = put(dk)
+    n_summary = s_count * n_data_max if summary_keys is None else summary_keys
     return StackedPlanes(
-        sk=put(sk), spos=put(spos), dk=put(dk),
+        sk=put(sk), spos=put(spos), dk=dk,
         n_spline=put(np.asarray([hp.sk.size for hp in hps], np.int32)),
         n_real=put(np.asarray([hp.n_real for hp in hps], np.int32)),
         row_off=put(np.asarray(row_off, np.int32)),
         shard_min=put(mins),
         n_shards=s_count, n_spline_max=n_spline_max, n_data_max=n_data_max,
         n_real_total=n_real_total, kind=kind, layer_arrays=layer_arrays,
-        static=static, eps_eff=eps_eff, window=window)
+        static=static, eps_eff=eps_eff, window=window,
+        summary=build_summary(dk, n_data_max, summary_levels(n_summary)))

@@ -17,7 +17,9 @@ Per query, one pass does what the reference splits over
    the reference rounds it; base = ``clip(floor(pred) - eps_eff, 0,
    n_data_max - window)``;
 5. eps-window data probe: first index in ``[base, base + window]`` whose key
-   is >= q, by count or by fixed-trip bisect;
+   is >= q, by count or, as the bisect form, by the summary probe
+   (``bounded_search.summary_lower_bound`` over the shard's row of the
+   planes' ``KeySummary``);
 6. clamp to the shard's real key count and add its global row offset;
 7. with a live delta buffer (``cap > 0``): add ``cum0[# delta keys < q]``.
 
@@ -26,6 +28,13 @@ runs on any device; ``stacked_lookup`` dispatches on the query tensor's
 device: the plain version for CPU tensors, the CUDA kernel
 (``csrc/stacked_lookup.cu``) for CUDA tensors — never a fallback between
 them. ``launches`` counts kernel launches.
+
+The launches of one dispatch are independent (they read the same read-only
+planes and each writes its own output), so every launch but a dispatch's
+first asks for ``overlap``: Hopper's programmatic dependent launch, which
+starts its blocks while the previous launch's last queries are in flight.
+A dispatch's first launch never overlaps, so K1 never starts before a
+PyTorch kernel whose output it reads has finished.
 """
 from __future__ import annotations
 
@@ -39,7 +48,8 @@ import torch
 from ..core.plex import PLEX
 from ..device import resolve_device
 from ._build import check_launch, check_params_size, device_ptr, load_library
-from .bounded_search import DEFAULT_PROBE, PROBE_MODES, probe_lower_bound
+from .bounded_search import DEFAULT_PROBE, PROBE_MODES, probe_lower_bound, \
+    summary_lower_bound
 from .keys import diff, extract_bits, le, low32_to_i32, lt, shr_low32, \
     take as _take, to_biased
 from .planes import DeltaPlanes, StackedPlanes, build_stacked_planes
@@ -139,10 +149,14 @@ def stacked_lookup_plain(sp: StackedPlanes, probe: str, q: torch.Tensor,
     pred = interp(sp.sk, sp.spos, q, row + seg)
     base = torch.floor(pred).long() - sp.eps_eff
     base = torch.clamp(base, 0, sp.n_data_max - sp.window)
-    drow = sid * sp.n_data_max
-    got = probe_lower_bound(sp.dk, q, drow + base, window=sp.window,
-                            mode=probe)
-    out = torch.minimum(got - drow, _take(sp.n_real, sid).long()) \
+    if probe == "count":
+        drow = sid * sp.n_data_max
+        got = probe_lower_bound(sp.dk, q, drow + base, window=sp.window,
+                                mode="count") - drow
+    else:
+        got = summary_lower_bound(sp.dk, sp.summary, q, base,
+                                  window=sp.window, row=sid)
+    out = torch.minimum(got, _take(sp.n_real, sid).long()) \
         + _take(sp.row_off, sid).long()
     if delta is not None:
         cnt = probe_lower_bound(delta.keys, q, torch.zeros_like(q),
@@ -159,12 +173,12 @@ class _Params(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "q", "sk", "spos", "dk", "n_spline", "n_real", "row_off",
         "shard_min", "table", "table_off", "shift", "p_max", "lmin",
-        "cells", "cells_off", "delta", "dkeys", "dcum", "out", "sid_out",
-        "base_out")] + [(name, ctypes.c_int64) for name in (
-        "n_q", "n_spline_max", "n_data_max")] + [(name, ctypes.c_int32)
-        for name in ("n_shards", "eps_eff", "window", "search_width",
-                     "search_trips", "probe_trips", "r", "levels", "cap",
-                     "delta_trips")]
+        "cells", "cells_off", "delta", "dkeys", "dcum", "s1", "s2", "out",
+        "sid_out", "base_out")] + [(name, ctypes.c_int64) for name in (
+        "n_q", "n_spline_max", "n_data_max", "n1", "n2")] + [
+        (name, ctypes.c_int32) for name in (
+            "n_shards", "eps_eff", "window", "search_width", "search_trips",
+            "r", "levels", "cap", "delta_trips")]
 
 
 _EXPECT = {"sk": torch.int64, "spos": torch.float32, "dk": torch.int64,
@@ -174,7 +188,7 @@ _EXPECT = {"sk": torch.int64, "spos": torch.float32, "dk": torch.int64,
            "shift": torch.int32, "p_max": torch.int32, "lmin": torch.int64,
            "cells": torch.int32, "cells_off": torch.int32,
            "delta": torch.int32, "dkeys": torch.int64,
-           "dcum": torch.int32}
+           "dcum": torch.int32, "s1": torch.int64, "s2": torch.int64}
 
 
 def _ptr(name: str, t: torch.Tensor, dev: torch.device) -> int:
@@ -182,9 +196,10 @@ def _ptr(name: str, t: torch.Tensor, dev: torch.device) -> int:
 
 
 def _launch(sp: StackedPlanes, probe: str, q: torch.Tensor,
-            delta: DeltaPlanes | None, aux: bool):
+            delta: DeltaPlanes | None, aux: bool, overlap: bool):
     """One kernel launch over ``q`` on the current stream (no sync, no
-    allocation inside the kernel)."""
+    allocation inside the kernel); with ``overlap``, a programmatic
+    dependent launch on its predecessor."""
     global launches
     lib = load_library("stacked_lookup")
     check_params_size(lib, "plex_params_size", _Params)
@@ -207,6 +222,10 @@ def _launch(sp: StackedPlanes, probe: str, q: torch.Tensor,
         setattr(p, name, _ptr(name, getattr(sp, name), dev))
     for name, t in sp.layer_arrays.items():
         setattr(p, name, _ptr(name, t, dev))
+    p.s1 = _ptr("s1", sp.summary.l1, dev)
+    p.s2 = _ptr("s2", sp.summary.l2, dev)
+    p.n1 = sp.summary.n1
+    p.n2 = sp.summary.n2
     p.search_width, p.search_trips = _search_geometry(sp)
     if sp.kind == "cht":
         p.r = s["r"]
@@ -228,21 +247,25 @@ def _launch(sp: StackedPlanes, probe: str, q: torch.Tensor,
     p.n_shards = sp.n_shards
     p.eps_eff = sp.eps_eff
     p.window = sp.window
-    p.probe_trips = int(sp.window).bit_length()
+    # 0: the count sweep; 1, 2: the summary probe over that many levels
+    form = sp.summary.levels if probe == "bisect" else 0
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.plex_stacked_lookup(
         ctypes.addressof(p), int(sp.kind == "cht"), int(s["mode"] == "bisect"),
-        int(probe == "bisect"), int(delta is not None), stream)
+        form, int(delta is not None), int(overlap), stream)
     check_launch(lib, "plex_error_string", err, "stacked_lookup")
     launches += 1
     return out, sid, base
 
 
 def stacked_lookup(sp: StackedPlanes, probe: str, q: torch.Tensor,
-                   delta: DeltaPlanes | None = None, *, aux: bool = False):
+                   delta: DeltaPlanes | None = None, *, aux: bool = False,
+                   overlap: bool = False):
     """Global (merged, with ``delta``) int32 indices for biased int64
     queries ``q`` on the planes' device. With ``aux`` also the routed shard
-    ids and local window bases (``None`` otherwise).
+    ids and local window bases (``None`` otherwise). ``overlap``: the
+    previous work on the stream is a launch of the same dispatch, which
+    this one may overlap (see the module docstring).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
@@ -252,7 +275,7 @@ def stacked_lookup(sp: StackedPlanes, probe: str, q: torch.Tensor,
         out, sid, base = stacked_lookup_plain(sp, probe, q, delta)
         return (out, sid, base) if aux else (out, None, None)
     if q.device.type == "cuda":
-        return _launch(sp, probe, q, delta, aux)
+        return _launch(sp, probe, q, delta, aux, overlap)
     raise ValueError(f"unsupported device {q.device}")
 
 
@@ -279,10 +302,12 @@ class StackedTorchPlex:
     @classmethod
     def from_plexes(cls, plexes: Sequence[PLEX], row_off: np.ndarray, *,
                     device=None, block: int = DEFAULT_BLOCK,
-                    probe: str | None = None, host_planes=None
+                    probe: str | None = None, host_planes=None,
+                    summary_keys: int | None = None
                     ) -> "StackedTorchPlex | None":
         """Build the fused stacked path on ``device``, or ``None`` when the
-        shards' static parameters cannot be unified."""
+        shards' static parameters cannot be unified. ``summary_keys``: see
+        ``build_stacked_planes``."""
         device = resolve_device(device)
         probe = probe or DEFAULT_PROBE
         if probe not in PROBE_MODES:
@@ -290,7 +315,8 @@ class StackedTorchPlex:
         if block % 128 != 0:
             raise ValueError("block must be a multiple of 128 lanes")
         sp = build_stacked_planes(plexes, row_off, device,
-                                  host_planes=host_planes)
+                                  host_planes=host_planes,
+                                  summary_keys=summary_keys)
         if sp is None:
             return None
         return cls(planes=sp, block=int(block), probe=probe)
@@ -300,23 +326,30 @@ class StackedTorchPlex:
         return self.planes.n_real_total
 
     def lookup_planes(self, q: torch.Tensor, n_valid: int | None = None,
-                      delta: DeltaPlanes | None = None) -> LaneResult:
+                      delta: DeltaPlanes | None = None, *,
+                      overlap: bool = False) -> LaneResult:
         """One micro-batch of biased int64 queries on the planes' device ->
         ``LaneResult``; asynchronous on the card. ``n_valid`` keeps the
         reference's signature: the kernel takes any length and computes
-        every lane, so nothing is padded and this slice only checks it."""
+        every lane, so nothing is padded and this slice only checks it.
+        ``overlap``: see ``stacked_lookup``."""
         if n_valid is not None and not 0 <= n_valid <= q.numel():
             raise ValueError(f"n_valid={n_valid} outside [0, {q.numel()}]")
         dp = delta if delta is not None and delta.n_entries else None
-        out, _, _ = stacked_lookup(self.planes, self.probe, q, dp)
+        out, _, _ = stacked_lookup(self.planes, self.probe, q, dp,
+                                   overlap=overlap)
         return LaneResult(out)
 
-    def dispatch(self, qd: torch.Tensor, delta: DeltaPlanes | None = None
-                 ) -> list[torch.Tensor]:
+    def dispatch(self, qd: torch.Tensor, delta: DeltaPlanes | None = None,
+                 *, chained: bool = False) -> list[torch.Tensor]:
         """One launch per ``block``-sized micro-batch of the device queries
-        ``qd`` (the last one may be shorter); asynchronous."""
+        ``qd`` (the last one may be shorter); asynchronous. Every launch
+        but the first overlaps the one before it; with ``chained`` (the
+        previous work on the stream is a launch of the same dispatch) the
+        first does too."""
         b = self.block
-        return [self.lookup_planes(qd[i:i + b], delta=delta).out
+        return [self.lookup_planes(qd[i:i + b], delta=delta,
+                                   overlap=chained or i > 0).out
                 for i in range(0, qd.numel(), b)]
 
     def lookup(self, q: np.ndarray, delta: DeltaPlanes | None = None

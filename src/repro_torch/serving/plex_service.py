@@ -11,6 +11,10 @@ device dispatch per micro-batch.
   routed and grouped by shard on the host, uploaded once, and each shard's
   slice runs through a single-shard stacked impl, one launch per
   micro-batch; the host adds the global offsets and the delta adjustment.
+* **Overlap.** Within one request's dispatch every launch but the first is
+  a programmatic dependent launch on the one before it, so the per-shard
+  path's many short launches overlap on the card
+  (``kernels.stacked_lookup``).
 * ``merge()`` rebuilds the snapshot from the logical key array and swaps it
   in with one reference assignment.
 
@@ -139,11 +143,12 @@ class PlexService:
     def _upload(self, q: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(to_biased(q)).to(self.device)
 
-    def _launch(self, st: StackedTorchPlex, qd: torch.Tensor,
-                delta) -> list[torch.Tensor]:
+    def _launch(self, st: StackedTorchPlex, qd: torch.Tensor, delta, *,
+                chained: bool = False) -> list[torch.Tensor]:
         """``st``'s launches over the device queries ``qd``, one per
-        micro-batch, counted in ``stats.batches``; asynchronous."""
-        outs = st.dispatch(qd, delta)
+        micro-batch, counted in ``stats.batches``; asynchronous.
+        ``chained``: a launch of the same dispatch precedes them."""
+        outs = st.dispatch(qd, delta, chained=chained)
         self.stats.batches += len(outs)
         return outs
 
@@ -151,8 +156,9 @@ class PlexService:
                           q: np.ndarray) -> np.ndarray:
         """Per-shard path: queries grouped by shard on the host (one stable
         sort), one upload, each shard's slice through its single-shard impl
-        (one launch per micro-batch), one copy back; each shard's clamp and
-        global offset and the delta adjustment are folded on the host."""
+        (one launch per micro-batch, each after the first overlapping the
+        one before), one copy back; each shard's clamp and global offset and
+        the delta adjustment are folded on the host."""
         snap = state.snapshot
         sid = snap.route(q)
         # shard ids in the narrowest integer type: numpy's stable argsort
@@ -165,7 +171,8 @@ class PlexService:
         for s, n in enumerate(counts):
             if n:
                 st = snap.shard_impl(s, block=self.block, probe=self.probe)
-                outs += self._launch(st, qd[start:start + n], None)
+                outs += self._launch(st, qd[start:start + n], None,
+                                     chained=bool(outs))
             start += n
         n_real = np.diff(np.append(snap.offsets, snap.n_keys))
         local = finalize_indices(torch.cat(outs), q.size,
