@@ -4,20 +4,26 @@
     python3 chip_smoke.py [--seed 0] [--serve-keys 200000000]
                           [--index-keys 16777216]
 
-Builds the port's CUDA kernels from this checkout's sources, holds each
-against its plain PyTorch version on the card, then drives the port's three
-paths:
+Builds the port's CUDA kernels (and ``tools/segment_split.cu``) from this
+checkout's sources, holds each against its plain PyTorch version on the
+card, then drives the port's three paths:
 
-* serving (K1): a PlexService over 200M SOSD-scale ``amzn`` keys answering
+* serving (K1): every kernel variant against the plain version, and keys
+  far past the end of a narrow radix shard against ``np.searchsorted``
+  (R5); a PlexService over 200M SOSD-scale ``amzn`` keys answering
   lookup requests, merged lookups after inserts and deletes, and a merge;
   each request's launches replayed as served (the overlap of programmatic
   dependent launch included), with one summary level against two and
   overlap against none, and K4 on the 200M-key plane, one level against
   two;
-* the per-index path (K2/K3 and K4): ``LearnedIndex.lookup`` over 2^24 keys
-  of each SOSD dataset (the most one index's float32 rank plane holds), then
-  the {radix, CHT} x {spline count, bisect} x {probe count, bisect} matrix;
-  every rank of both checked against ``np.searchsorted``; K4's summary probe
+* the per-index path (K2/K3 fused with K4 in one launch): ``LearnedIndex.
+  lookup`` over 2^24 keys of each SOSD dataset (the most one index's float32
+  rank plane holds), K2/K3 alone, K4 alone and the fused launch each held
+  to its plain version, K2/K3's time split by ``tools/segment_split.py``
+  (parts alone, each search form, the fused launch against the pair it
+  replaces, in turns), then the {radix, CHT} x {spline count, bisect,
+  adaptive} x {probe count, bisect} matrix with the fused launch in each
+  form; every rank checked against ``np.searchsorted``; K4's summary probe
   timed with one level against two;
 * LM serving (K5): the flash-attention kernels against their plain version,
   bf16 on the Hopper kernel (wgmma, TMA) and f32 on the SIMT one, the bf16
@@ -169,10 +175,18 @@ def measure_bandwidth(device) -> float:
 
 # ---------------------------------------------------------------- build ----
 
-def phase_build() -> None:
+def phase_build():
+    """Every kernel library, and ``tools/segment_split.cu`` (the split of
+    K2's and K3's time) beside them, all compiled at once. Returns the
+    split's library."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
+    from tools import segment_split
     t0 = time.perf_counter()
-    paths = _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        split_lib = pool.submit(segment_split.build)
+        paths = _build.build_all()
+        split_lib = split_lib.result()
     secs = time.perf_counter() - t0
     ptxas = {}
     for name, path in paths.items():
@@ -183,6 +197,7 @@ def phase_build() -> None:
                        or "warning" in ln][:64]
     emit("build", seconds=secs, libraries=sorted(paths), ptxas=ptxas,
          flags=" ".join(_build.NVCC_FLAGS))
+    return split_lib
 
 
 # --------------------------------------------------------------- kernel ----
@@ -258,9 +273,62 @@ def phase_kernel(device, seed: int, n_keys: int, n_queries: int) -> dict:
                           f"kernel variant failed: {row}")
         levels.append(kernel_levels(sp, kind, q, device))
         del sp
+    far = kernel_past_the_end(device, seed, n_queries)
     return dict(variants=len(results),
-                max_abs_err=max(r["max_abs_err"] for r in results),
-                levels=levels)
+                max_abs_err=max([r["max_abs_err"] for r in results]
+                                + [far["max_abs_err"]]),
+                levels=levels, past_the_end=far)
+
+
+def kernel_past_the_end(device, seed: int, n_queries: int) -> dict:
+    """K1 on a narrow radix shard (a 2^26 span above 2^40 beside a wide
+    shard below 2^39): keys far past the end (2^64 - 1, 2^63, the last key
+    + 2^52) have a radix prefix ``(q - min) >> shift`` of 2^46 and more,
+    which the reference's low 32 bits wrap (ROADMAP queue 3, R5). Every
+    query, in both spline modes and probe forms, equals the plain version
+    and ``np.searchsorted``."""
+    import torch
+    from repro_torch.core import build_plex
+    from repro_torch.kernels import stacked_lookup as SL
+    from repro_torch.kernels.keys import to_biased
+    from repro_torch.kernels.planes import build_stacked_planes
+    rng = np.random.default_rng(seed + 7)
+    half = 1 << 21
+    keys = np.concatenate([
+        np.sort(rng.integers(0, 1 << 39, half, dtype=np.uint64)),
+        np.sort((1 << 40) + rng.integers(0, 1 << 26, half,
+                                         dtype=np.uint64))])
+    offs = np.asarray([0, half])
+    plexes = _forced([build_plex(keys[:half], 64),
+                      build_plex(keys[half:], 64)], "radix")
+    sp = build_stacked_planes(plexes, offs, device)
+    check(sp is not None and sp.kind == "radix", "narrow radix planes")
+    shift = int(plexes[1].layer.shift)
+    far = np.asarray([U64_MAX, 1 << 63, int(keys[-1]) + (1 << 52)],
+                     dtype=np.uint64)
+    check(all((int(x) - int(keys[half])) >> shift >= 1 << 31 for x in far),
+          "the far keys' radix prefix stays below 2^31")
+    q_np = np.concatenate([far, make_queries(keys, n_queries, rng)])
+    want = np.searchsorted(keys, q_np, "left")
+    q = torch.from_numpy(to_biased(q_np)).to(device)
+    err = 0
+    for mode in ("count", "bisect"):
+        sp.static["mode"] = mode
+        for probe in ("count", "bisect"):
+            got = SL.stacked_lookup(sp, probe, q, aux=True)
+            plain = plain_chunked(sp, probe, q, None)
+            err = max(err, max(int((g.long() - w.long()).abs().max())
+                               for g, w in zip(got, plain)))
+            ranks = got[0].cpu().numpy().astype(np.int64)
+            check(err == 0 and np.array_equal(ranks, want),
+                  f"K1 past the end of a narrow radix shard ({mode} spline, "
+                  f"{probe} probe): {int(np.count_nonzero(ranks != want))} "
+                  f"ranks differ from searchsorted, plain error {err}")
+    row = dict(keys=int(keys.size), shift=shift, far=[int(x) for x in far],
+               queries=int(q_np.size), max_abs_err=err,
+               matches_searchsorted=True)
+    emit("kernel_past_the_end", **row)
+    return row
 
 
 def kernel_levels(sp, kind: str, q, device) -> dict:
@@ -646,25 +714,33 @@ def index_bound_bytes(px, q: np.ndarray, kernel: str) -> int:
     base, and read once each distinct 32 B sector of the spline keys (8 B)
     and ranks (4 B) at both ends of the queries' segments; K4 reads each
     query's key and base and writes its index (16 B), and reads once each
-    distinct data-plane sector holding an answer. Layer cells and table
-    entries are left out, so the count errs low."""
+    distinct data-plane sector holding an answer; the fused launch reads
+    each key and writes each index (12 B) and the sectors of both. Layer
+    cells and table entries are left out, so the count errs low."""
+    rank_sectors = 32 * np.unique(np.searchsorted(px.keys, q, "left")
+                                  // 4).size
     if kernel == "bounded_search":
-        rank = np.searchsorted(px.keys, q, "left")
-        return q.size * 16 + 32 * np.unique(rank // 4).size
+        return q.size * 16 + rank_sectors
     sk = px.spline.keys
     seg = np.clip(np.searchsorted(sk, q, "right") - 1, 0,
                   max(sk.size - 2, 0))
     ends = np.concatenate([seg, seg + 1])
-    return q.size * 12 + 32 * (np.unique(ends // 4).size
-                               + np.unique(ends // 8).size)
+    spline_sectors = 32 * (np.unique(ends // 4).size
+                           + np.unique(ends // 8).size)
+    if kernel == "window_probe":
+        return q.size * 12 + spline_sectors + rank_sectors
+    return q.size * 12 + spline_sectors
 
 
-def index_times(dp, px, qd, q_np, base, device) -> dict:
+def index_times(dp, px, qd, q_np, base, device, split: dict) -> dict:
     """Each kernel of ``dp``'s lookup over the device queries ``qd`` (K2 or
-    K3, then K4 from ``base``) held against its plain version exactly, then
-    the CUDA-event time of one launch, its plain version's, its bound and,
-    for K4, ``torch.searchsorted`` over the data plane. The launches made
-    here are not the main path's."""
+    K3 in the card's form, K4 from ``base``, and the two fused, the main
+    path's launch) held against its plain version exactly, then the
+    CUDA-event time of one launch, its plain version's, its bound and, for
+    K4 and the fused launch, ``torch.searchsorted`` over the data plane.
+    K2/K3's times by search form, the fused launch's and the pair's it
+    replaces come from ``split`` (``tools/segment_split.py``, in turns).
+    The launches made here are not the main path's."""
     import torch
     from repro_torch.kernels import bounded_search as BS
     from repro_torch.kernels import segment_lookup as SEG
@@ -679,11 +755,13 @@ def index_times(dp, px, qd, q_np, base, device) -> dict:
              None),
             ("bounded_search",
              lambda: BS.bounded_search(pp.dk, qd, base, window=pp.window,
-                                       mode=BS.DEFAULT_PROBE,
                                        summary=pp.summary),
              lambda: chunked(lambda c, b: BS.bounded_search_plain(
-                 pp.dk, c, b, window=pp.window, mode=BS.DEFAULT_PROBE,
+                 pp.dk, c, b, window=pp.window, mode="bisect",
                  summary=pp.summary), qd, base),
+             lambda: torch.searchsorted(real, qd)),
+            ("window_probe", lambda: SEG.window_probe(pp, qd),
+             lambda: chunked(lambda c: SEG.window_probe_plain(pp, c), qd),
              lambda: torch.searchsorted(real, qd))):
         err = int((kern().long() - plain().long()).abs().max())
         check(err == 0, f"{name} differs from its plain version by {err}")
@@ -693,8 +771,24 @@ def index_times(dp, px, qd, q_np, base, device) -> dict:
             bound_ms=index_bound_bytes(px, q_np, name)
             / (PEAK_HBM_TBS * 1e12) * 1e3,
             library_ms=device_ms(lib, device, reps=10) if lib else None)
+    out[seg_name]["card_form"] = SEG.CARD_FORM
+    if split is not None:
+        ms = split["ms"]
+        out[seg_name].update(
+            ms_by_form={m: ms[f"kernel_{m}"] for m in SEG.SEARCH_FORMS},
+            split={k: ms[k] for k in SPLIT_PARTS if k in ms})
+        out["window_probe"].update(
+            pair_ms=ms["pair"],
+            ms_by_form={m: ms[f"fused_{m}"] for m in SEG.SEARCH_FORMS})
     out["bounded_search"].update(probe_levels(pp, qd, base, device))
     return out
+
+
+# the split's parts of K2/K3 (tools/segment_split.py) in the kernels line
+SPLIT_PARTS = ("stream", "layer", "layer_count", "layer_bisect",
+               "layer_adaptive", "layer_segment", "layer_bisect_x2",
+               "layer_warp8", "layer_level0_smem", "whole_adaptive_no_hints",
+               "fused_adaptive_no_hints", "torch_take")
 
 
 def probe_levels(pp, qd, base, device) -> dict:
@@ -732,10 +826,26 @@ def probe_levels(pp, qd, base, device) -> dict:
                                            device, reps=10))
 
 
-def phase_index(device, seed: int, n_keys: int, n_queries: int) -> dict:
+def mean_of(rows):
+    """The mean over ``rows`` of each number (nested dicts too); strings,
+    flags, ``None`` and integers equal in every row are taken as they
+    are."""
+    first = rows[0]
+    if isinstance(first, dict):
+        return {k: mean_of([r[k] for r in rows]) for k in first
+                if all(k in r for r in rows)}
+    if first is None or isinstance(first, (str, bool)) or (
+            isinstance(first, int) and all(r == first for r in rows)):
+        return first
+    return float(np.mean(rows))
+
+
+def phase_index(device, seed: int, n_keys: int, n_queries: int,
+                split_lib=None) -> dict:
     """The per-index path on each dataset: ``LearnedIndex.lookup`` (one
-    K2-or-K3 launch and one K4 launch a call) against searchsorted, the
-    host ``backend="numpy"`` beside it, and each kernel timed on the
+    launch a call: K2 or K3 fused with K4) against searchsorted, the host
+    ``backend="numpy"`` beside it, K2/K3's split
+    (``tools/segment_split.py``, on the card) and each kernel timed on the
     dataset's own launch; then the variant matrix."""
     import torch
     from repro_torch.core import LearnedIndex
@@ -743,12 +853,13 @@ def phase_index(device, seed: int, n_keys: int, n_queries: int) -> dict:
     from repro_torch.kernels import bounded_search as BS
     from repro_torch.kernels import segment_lookup as SEG
     from repro_torch.kernels.keys import to_biased
+    from tools.segment_split import split as segment_split
     if n_keys < INDEX_KEYS:
         emit("reduced", index_keys=n_keys, of=INDEX_KEYS)
     rng = np.random.default_rng(seed + 3)
     cuda = device.type == "cuda"
     names = {"radix": "radix_segment_lookup", "cht": "cht_segment_lookup",
-             "probe": "bounded_search"}
+             "probe": "bounded_search", "fused": "window_probe"}
     launches = dict.fromkeys(names.values(), 0)
     timed: dict = {n: [] for n in names.values()}
     matrix_px = None
@@ -765,7 +876,7 @@ def phase_index(device, seed: int, n_keys: int, n_queries: int) -> dict:
         q = make_queries(keys, n_queries, rng)
         want = np.searchsorted(keys, q, "left")
         # ---- the main path: counts at 0 just before, read just after
-        SEG.launches = BS.launches = 0
+        SEG.launches = BS.launches = SEG.fused_launches = 0
         secs = []
         for i in range(INDEX_LOOKUPS):
             t0 = time.perf_counter()
@@ -775,14 +886,17 @@ def phase_index(device, seed: int, n_keys: int, n_queries: int) -> dict:
                   f"{ds} lookup {i}: "
                   f"{int(np.count_nonzero(got != want))} ranks differ "
                   f"from searchsorted")
-        seg_n, probe_n = SEG.launches, BS.launches
+        seg_n, probe_n, fused_n = SEG.launches, BS.launches, \
+            SEG.fused_launches
         # ---- end of the main path
         if cuda:
-            check(seg_n == probe_n == INDEX_LOOKUPS,
-                  f"{ds}: {seg_n} segment and {probe_n} probe launches for "
-                  f"{INDEX_LOOKUPS} lookups (want one each a lookup)")
+            check((seg_n, probe_n, fused_n) == (0, 0, INDEX_LOOKUPS),
+                  f"{ds}: {fused_n} fused, {seg_n} segment and {probe_n} "
+                  f"probe launches for {INDEX_LOOKUPS} lookups (want one "
+                  f"fused launch a lookup)")
         launches[names[kind]] += seg_n
         launches[names["probe"]] += probe_n
+        launches[names["fused"]] += fused_n
         t0 = time.perf_counter()
         host = idx.lookup(q, backend="numpy")
         host_s = time.perf_counter() - t0
@@ -790,16 +904,22 @@ def phase_index(device, seed: int, n_keys: int, n_queries: int) -> dict:
               f"{ds}: backend='numpy' differs from searchsorted on "
               f"{int(np.count_nonzero(host != want))} queries")
         qd = torch.from_numpy(to_biased(q)).to(device)
+        split = None
+        if split_lib is not None:
+            split = segment_split(split_lib, dp.planes, qd, device)
+            emit("segment_split", dataset=ds, index="tuned", **split)
         base = SEG.window_base(dp.planes, qd)
-        times = index_times(dp, idx.plex, qd, q, base, device)
+        times = index_times(dp, idx.plex, qd, q, base, device, split)
         for name, t in times.items():
             timed[name].append(t)
         emit("index", dataset=ds, keys=n_keys, queries=int(q.size),
              layer=kind, spline_mode=dp.planes.static["mode"],
-             probe=BS.DEFAULT_PROBE, window=dp.planes.window,
-             n_spline=dp.planes.sk.numel(), build_s=build_s,
-             warmup_s=warm_s, segment_launches=seg_n,
-             probe_launches=probe_n, lookups=INDEX_LOOKUPS,
+             card_form=SEG.CARD_FORM, probe="bisect",
+             window=dp.planes.window, n_spline=dp.planes.sk.numel(),
+             search_width=SEG.search_width(dp.planes), build_s=build_s,
+             warmup_s=warm_s, fused_launches=fused_n,
+             segment_launches=seg_n, probe_launches=probe_n,
+             lookups=INDEX_LOOKUPS,
              lookups_per_s=INDEX_LOOKUPS * q.size / sum(secs),
              lookup_ms=[s_ * 1e3 for s_ in secs],
              numpy_lookups_per_s=q.size / host_s,
@@ -810,48 +930,42 @@ def phase_index(device, seed: int, n_keys: int, n_queries: int) -> dict:
                  top_tottime_ms=profile_request(idx, q))
         del idx, dp, qd, base
     if cuda:
-        for name, n in launches.items():
-            check(n > 0, f"{name} made no launch on the per-index path")
-    matrix = phase_index_matrix(device, *matrix_px)
+        check(launches["window_probe"] > 0,
+              "the fused K2/K3 + K4 kernel made no launch on the per-index "
+              "path")
+    matrix = phase_index_matrix(device, *matrix_px, split_lib)
     out = {}
     for name, rows in timed.items():
         if not rows:
             continue
         # times: the mean over the datasets this kernel served
-        out[name] = {k: (float(np.mean([r[k] for r in rows]))
-                         if rows[0][k] is not None else None)
-                     for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-        if "ms_by_levels" in rows[0]:
-            out[name].update(
-                answer_gather_ms=float(np.mean([r["answer_gather_ms"]
-                                                for r in rows])),
-                summary_levels=rows[0]["summary_levels"],
-                summary_bytes=rows[0]["summary_bytes"],
-                probe_bytes_per_query=rows[0]["probe_bytes_per_query"],
-                ms_by_levels={k: float(np.mean([r["ms_by_levels"][k]
-                                                for r in rows]))
-                              for k in ("1", "2")})
+        out[name] = mean_of(rows)
         out[name].update(launches=launches[name], max_abs_err=max(
             [r["max_abs_err"] for r in rows] + [matrix["max_abs_err"][name]]))
+        if name in matrix["forced_split"]:
+            out[name]["forced_layer"] = matrix["forced_split"][name]
     emit("index_summary", kernels=out)
     return out
 
 
-def phase_index_matrix(device, px, q_np) -> dict:
-    """Both layers forced on one dataset, crossed with both spline search
-    modes and both probe forms: each kernel's output equals its plain
-    version's on the card (window bases for K2/K3, indices for K4), and
-    the ranks equal searchsorted."""
+def phase_index_matrix(device, px, q_np, split_lib=None) -> dict:
+    """Both layers forced on one dataset, crossed with the three spline
+    search forms and both probe forms: each kernel's output equals its
+    plain version's on the card (window bases for K2/K3, indices for K4 and
+    for K2/K3 fused with K4), and the ranks equal searchsorted; K2/K3's
+    split on each forced layer."""
     import torch
     from repro_torch.kernels import bounded_search as BS
     from repro_torch.kernels import segment_lookup as SEG
     from repro_torch.kernels.keys import to_biased
     from repro_torch.kernels.ops import DevicePlex
     from repro_torch.kernels.planes import finalize_indices
+    from tools.segment_split import split as segment_split
     qd = torch.from_numpy(to_biased(q_np)).to(device)
     want = np.searchsorted(px.keys, q_np, "left")
     err = {"radix_segment_lookup": 0, "cht_segment_lookup": 0,
-           "bounded_search": 0}
+           "bounded_search": 0, "window_probe": 0}
+    forced_split = {}
     cases = 0
     for kind in ("radix", "cht"):
         fpx = _forced([px], kind)[0]
@@ -859,13 +973,27 @@ def phase_index_matrix(device, px, q_np) -> dict:
         pp = dp.planes
         check(pp.kind == kind, f"forced {kind} layer")
         seg_name = f"{kind}_segment_lookup"
-        for mode in ("count", "bisect"):
-            pp.static["mode"] = mode
-            base = SEG.window_base(pp, qd)
-            base_plain = chunked(lambda c: SEG.window_base_plain(pp, c), qd)
+        if split_lib is not None:
+            split = segment_split(split_lib, pp, qd, device)
+            emit("segment_split", dataset="amzn", index=f"forced_{kind}",
+                 **split)
+            forced_split[seg_name] = dict(
+                search_width=split["search_width"],
+                ms_by_form={m: split["ms"][f"kernel_{m}"]
+                            for m in SEG.SEARCH_FORMS},
+                split={k: split["ms"][k] for k in SPLIT_PARTS
+                       if k in split["ms"]})
+        base_plain = chunked(lambda c: SEG.window_base_plain(pp, c), qd)
+        probe_plain = chunked(lambda c: SEG.window_probe_plain(pp, c), qd)
+        for mode in SEG.SEARCH_FORMS:
+            base = SEG.window_base(pp, qd, mode)
             e = int((base.long() - base_plain.long()).abs().max())
             err[seg_name] = max(err[seg_name], e)
-            seg_ms = device_ms(lambda: SEG.window_base(pp, qd), device)
+            fused = SEG.window_probe(pp, qd, mode)
+            fe = int((fused.long() - probe_plain.long()).abs().max())
+            err["window_probe"] = max(err["window_probe"], fe)
+            fused_ranks = finalize_indices(fused, q_np.size, pp.n_real)
+            seg_ms = device_ms(lambda: SEG.window_base(pp, qd, mode), device)
             for probe in ("count", "bisect"):
                 got = BS.bounded_search(pp.dk, qd, base, window=pp.window,
                                         mode=probe, summary=pp.summary)
@@ -876,22 +1004,23 @@ def phase_index_matrix(device, px, q_np) -> dict:
                 err["bounded_search"] = max(err["bounded_search"], pe)
                 ranks = finalize_indices(got, q_np.size, pp.n_real)
                 row = dict(layer=kind, spline_mode=mode, probe=probe,
-                           window=pp.window,
-                           search=(pp.static.get("max_win")
-                                   or pp.static["delta"] + 1),
+                           window=pp.window, search=SEG.search_width(pp),
                            segment_max_abs_err=e, probe_max_abs_err=pe,
+                           fused_max_abs_err=fe,
                            matches_searchsorted=bool(
-                               np.array_equal(ranks, want)),
+                               np.array_equal(ranks, want)
+                               and np.array_equal(fused_ranks, want)),
                            segment_ms=seg_ms,
                            probe_ms=device_ms(lambda: BS.bounded_search(
                                pp.dk, qd, base, window=pp.window,
                                mode=probe, summary=pp.summary), device))
                 emit("index_matrix", **row)
                 cases += 1
-                check(e == 0 and pe == 0 and row["matches_searchsorted"],
+                check(e == 0 and pe == 0 and fe == 0
+                      and row["matches_searchsorted"],
                       f"index variant failed: {row}")
         del dp, pp
-    return dict(cases=cases, max_abs_err=err)
+    return dict(cases=cases, max_abs_err=err, forced_split=forced_split)
 
 
 # ------------------------------------------------------------ attention ----
@@ -1493,13 +1622,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     info = phase_env(device)
-    phase_build()
+    split_lib = phase_build()
     emit("bandwidth", measured_gbs=measure_bandwidth(device),
          published_tbs=PEAK_HBM_TBS, card=info["card"])
     kern = phase_kernel(device, args.seed, KERNEL_KEYS, QUERIES)
     serve = phase_serve(device, args.seed, args.serve_keys, QUERIES)
     phase_merge(device, args.seed, KERNEL_KEYS, QUERIES)
-    index = phase_index(device, args.seed, args.index_keys, QUERIES)
+    index = phase_index(device, args.seed, args.index_keys, QUERIES,
+                        split_lib)
     # the lookup phases' planes are gone with their frames; hand their
     # cached blocks back before the 20 GB model is drawn
     gc.collect()
@@ -1512,16 +1642,21 @@ def main(argv=None) -> int:
     phase_lm_serve(device, args.seed, model, params)
     del model, params
     csrc = "src/repro_torch/kernels/csrc/"
-    replaces = {
-        "radix_segment_lookup":
-            "src/repro/kernels/plex_segment_lookup.py:302",
-        "cht_segment_lookup": "src/repro/kernels/plex_segment_lookup.py:327",
-        "bounded_search": "src/repro/kernels/bounded_search.py:36"}
+    k2, k3 = ("src/repro/kernels/plex_segment_lookup.py:302",
+              "src/repro/kernels/plex_segment_lookup.py:327")
+    k4 = "src/repro/kernels/bounded_search.py:36"
+    replaces = {"radix_segment_lookup": k2, "cht_segment_lookup": k3,
+                "bounded_search": k4, "window_probe": f"{k2}, {k3}, {k4}"}
     sources = {"radix_segment_lookup": csrc + "segment_lookup.cu",
                "cht_segment_lookup": csrc + "segment_lookup.cu",
-               "bounded_search": csrc + "bounded_search.cu"}
+               "bounded_search": csrc + "bounded_search.cu",
+               "window_probe": csrc + "segment_lookup.cu"}
     summary_keys = ("summary_levels", "summary_bytes",
                     "probe_bytes_per_query", "ms_by_levels")
+    # K2/K3 rows: the card's search form, ms by form, the split; the bound
+    # leaves out table and cell reads (index_bound_bytes)
+    extra = ("card_form", "ms_by_form", "split", "forced_layer", "pair_ms",
+             "answer_gather_ms") + summary_keys
     print(json.dumps({"kernels": [{
         "name": "stacked_lookup", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stacked_lookup.cu",
@@ -1536,14 +1671,16 @@ def main(argv=None) -> int:
         "spline_modes": serve["spline_modes"],
         "ms_spline_bisect": serve["ms_spline_bisect"],
         **{k: serve[k] for k in summary_keys},
-        "kernel_phase": kern["levels"]}] + [{
+        "kernel_phase": kern["levels"],
+        "past_the_end": kern["past_the_end"]}] + [{
         "name": name, "route": "cuda", "source": sources[name],
         "replaces": replaces[name], "launches": k["launches"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": k["library_ms"],
         "matches_plain": True,
-        **{f: k[f] for f in summary_keys + ("answer_gather_ms",) if f in k},
+        "on_main_path": name == "window_probe",
+        **{f: k[f] for f in extra if f in k},
         **({"service_plane": serve["probe_200m"]}
            if name == "bounded_search" else {})}
         for name, k in index.items()] + [{

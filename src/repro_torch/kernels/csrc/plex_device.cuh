@@ -1,5 +1,6 @@
 // Device functions shared by the port's PLEX kernels (sm_90a):
-// stacked_lookup.cu (K1), segment_lookup.cu (K2, K3), bounded_search.cu (K4).
+// stacked_lookup.cu (K1), segment_lookup.cu (K2, K3, and K2/K3 fused with
+// K4), bounded_search.cu (K4).
 //
 // Keys are biased int64 (k ^ 2^63): signed order is the unsigned order, and
 // the u64 difference of two keys is their wrapping int64 difference.
@@ -23,46 +24,88 @@ __device__ __forceinline__ uint64_t key_diff(int64_t a, int64_t b) {
   return static_cast<uint64_t>(a) - static_cast<uint64_t>(b);
 }
 
-// Radix prefix of K1, as the reference computes it: the low 32 bits of
-// (q - min) >> shift (0 below min), cast to int32 (a huge absent key can
-// wrap, negative or to an arbitrary bucket), clipped to [0, p_max].
-__device__ __forceinline__ int32_t radix_prefix_wrapped(int64_t q,
-                                                        int64_t min_key,
-                                                        int32_t shift,
-                                                        int32_t p_max) {
-  const uint64_t d = (q < min_key) ? 0ull : key_diff(q, min_key);
-  const int32_t pfx = static_cast<int32_t>(static_cast<uint32_t>(d >> shift));
-  return min(max(pfx, 0), p_max);
+// ---- loads of the small planes ---------------------------------------------
+//
+// The spline keys and ranks, the radix table and the CHT cells are read
+// through a loader: PlainLoad (K1: plain loads, the table and cells through
+// the read-only path) or KeptLoad (K2/K3: an L2 evict_last policy, so the
+// stream of queries, bases and data segments does not push them out of L2).
+
+constexpr int kSegment = 8;  // keys a sample stands for: 64 bytes
+
+// L2 policy for loads of data to keep: evict its lines last.
+__device__ __forceinline__ uint64_t summary_policy() {
+  uint64_t pol;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
 }
 
-// Radix prefix of K2: the whole (q - min) >> shift (0 below min), clipped
-// to p_max, so a key far past the last one lands in the last bucket
-// (ROADMAP queue 3, R5: the reference's wrap misroutes it).
-__device__ __forceinline__ int32_t radix_prefix(int64_t q, int64_t min_key,
-                                                int32_t shift, int32_t p_max) {
+__device__ __forceinline__ int64_t load_kept(const int64_t* p, uint64_t pol) {
+  int64_t v;
+  asm("ld.global.nc.L2::cache_hint.b64 %0, [%1], %2;"
+      : "=l"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+struct PlainLoad {
+  __device__ __forceinline__ int64_t key(const int64_t* p) const { return *p; }
+  __device__ __forceinline__ float rank(const float* p) const { return *p; }
+  __device__ __forceinline__ int32_t i32(const int32_t* p) const {
+    return __ldg(p);
+  }
+};
+
+struct KeptLoad {
+  uint64_t pol;
+  __device__ __forceinline__ int64_t key(const int64_t* p) const {
+    return load_kept(p, pol);
+  }
+  __device__ __forceinline__ float rank(const float* p) const {
+    float v;
+    asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+        : "=f"(v) : "l"(p), "l"(pol));
+    return v;
+  }
+  __device__ __forceinline__ int32_t i32(const int32_t* p) const {
+    int32_t v;
+    asm("ld.global.nc.L2::cache_hint.s32 %0, [%1], %2;"
+        : "=r"(v) : "l"(p), "l"(pol));
+    return v;
+  }
+};
+
+// Radix-table window [lo, hi] of spline indices for query q: the table
+// pair at the prefix (q - min) >> shift (0 below min), the whole shifted
+// difference saturated at p_max. The reference keeps its low 32 bits, cast
+// to int32, which misroutes a key far past the last one (ROADMAP queue 3,
+// R5); below 2^31 the two are equal.
+template <class L>
+__device__ __forceinline__ void radix_window(const L& ld, const int32_t* table,
+                                             int64_t q, int64_t min_key,
+                                             int32_t shift, int32_t p_max,
+                                             int32_t& lo, int32_t& hi) {
   const uint64_t d = (q < min_key) ? 0ull : key_diff(q, min_key);
   const uint64_t pfx = d >> shift;
-  return pfx < static_cast<uint64_t>(p_max) ? static_cast<int32_t>(pfx) : p_max;
-}
-
-// Radix-table window [lo, hi] of spline indices for prefix p.
-__device__ __forceinline__ void table_window(const int32_t* table, int32_t p,
-                                             int32_t& lo, int32_t& hi) {
-  lo = max(__ldg(table + p) - 1, 0);
-  hi = max(__ldg(table + p + 1) - 1, 0);
+  const int32_t p =
+      pfx < static_cast<uint64_t>(p_max) ? static_cast<int32_t>(pfx) : p_max;
+  lo = max(ld.i32(table + p) - 1, 0);
+  hi = max(ld.i32(table + p + 1) - 1, 0);
 }
 
 // CHT descent over `levels` cells (top bit = child): the terminal value q~.
 // Bins come from the unbiased key: (k << lvl*r) >> (64 - r).
-__device__ __forceinline__ int32_t cht_descend(const uint32_t* cells,
+template <class L>
+__device__ __forceinline__ int32_t cht_descend(const L& ld,
+                                               const uint32_t* cells,
                                                int64_t q, int32_t r,
                                                int32_t levels) {
   const uint64_t k = static_cast<uint64_t>(q) ^ 0x8000000000000000ull;
+  const int32_t* c = reinterpret_cast<const int32_t*>(cells);
   int64_t node = 0;
   int32_t val = 0;
   for (int32_t lvl = 0; lvl < levels; ++lvl) {
     const uint32_t bin = static_cast<uint32_t>((k << (lvl * r)) >> (64 - r));
-    const uint32_t cell = __ldg(cells + (node << r) + bin);
+    const uint32_t cell = static_cast<uint32_t>(ld.i32(c + (node << r) + bin));
     val = static_cast<int32_t>(cell & 0x7FFFFFFFu);
     if (!(cell >> 31)) return val;  // terminal: the rounds left are no-ops
     node = val;
@@ -71,22 +114,27 @@ __device__ __forceinline__ int32_t cht_descend(const uint32_t* cells,
   return val;
 }
 
-// Spline predecessor: largest i in [lo, hi] with sk[i] <= q (lo when none
-// is), by a count over at most `width` keys or by `trips` bisect rounds.
-// `sk` is the spline row of `ns` keys; every read is clamped to it.
-template <bool BISECT>
+// Spline search forms (identical predecessors).
+enum { kCount = 0, kBisect = 1, kAdaptive = 2 };
+
+// Spline predecessor: largest i in [lo, hi] with sk[i] <= q, lo when none
+// is, by the reference's count over at most `width` keys (kCount) or its
+// `trips` fixed bisect rounds (kBisect). `sk` is the spline row of `ns`
+// keys; every read is clamped to it. kAdaptive is adaptive_predecessor.
+template <int FORM, class L>
 __device__ __forceinline__ int32_t spline_predecessor(
-    const int64_t* sk, int32_t ns, int64_t q, int32_t lo, int32_t hi,
-    int32_t width, int32_t trips) {
-  if constexpr (!BISECT) {
+    const L& ld, const int64_t* sk, int32_t ns, int64_t q, int32_t lo,
+    int32_t hi, int32_t width, int32_t trips) {
+  if constexpr (FORM == kCount) {
     const int32_t last = min(hi - lo, width - 1);
     int32_t cnt = 0;
-    for (int32_t j = 0; j <= last; ++j) cnt += (sk[min(lo + j, ns - 1)] <= q);
+    for (int32_t j = 0; j <= last; ++j)
+      cnt += (ld.key(sk + min(lo + j, ns - 1)) <= q);
     return lo + max(cnt - 1, 0);
   } else {
     for (int32_t t = 0; t < trips; ++t) {
       const int32_t mid = (lo + hi + 1) >> 1;
-      const bool go = sk[min(mid, ns - 1)] <= q;
+      const bool go = ld.key(sk + min(mid, ns - 1)) <= q;
       lo = go ? mid : lo;
       hi = go ? hi : mid - 1;
     }
@@ -94,19 +142,62 @@ __device__ __forceinline__ int32_t spline_predecessor(
   }
 }
 
+// The adaptive form's predecessor, and the keys at it and after it where a
+// probe read them (flags say which).
+struct Predecessor {
+  int32_t seg;
+  bool has_x0, has_x1;
+  int64_t x0, x1;  // sk[seg], sk[seg + 1]
+};
+
+// kAdaptive: the predecessor by bisect rounds until the window closes (a
+// warp runs until its widest window does, not the widest of the planes),
+// keeping the key of the last probe that moved lo (sk[seg]) and of the last
+// that moved hi (sk[seg + 1]) for the interpolation, which then reads only
+// the two ranks where both were probed. hi is first clipped to ns - 1:
+// where the reference's forms read the last key again instead, their
+// predecessor is past ns - 2 too, and the interpolation clips every form's
+// to ns - 2, so all give the same base.
+template <class L>
+__device__ __forceinline__ Predecessor adaptive_predecessor(
+    const L& ld, const int64_t* sk, int32_t ns, int64_t q, int32_t lo,
+    int32_t hi) {
+  Predecessor r{0, false, false, 0, 0};
+  hi = min(hi, ns - 1);
+  while (lo < hi) {
+    const int32_t mid = (lo + hi + 1) >> 1;
+    const int64_t k = ld.key(sk + mid);
+    if (k <= q) {
+      lo = mid;
+      r.x0 = k;
+      r.has_x0 = true;
+    } else {
+      hi = mid - 1;
+      r.x1 = k;
+      r.has_x1 = true;
+    }
+  }
+  r.seg = lo;
+  return r;
+}
+
 // Window base of the eps probe: float32 interpolation at segment `seg`
 // (clipped to [0, ns - 2] in min(max(.)) order), then
-// clip(floor(pred) - eps_eff, 0, base_max).
-__device__ __forceinline__ int32_t segment_base(const int64_t* sk,
+// clip(floor(pred) - eps_eff, 0, base_max); the second form takes the keys
+// an adaptive search already read.
+template <class L>
+__device__ __forceinline__ int32_t segment_base(const L& ld, const int64_t* sk,
                                                 const float* spos, int32_t ns,
-                                                int64_t q, int32_t seg,
+                                                int64_t q,
+                                                const Predecessor& pr,
                                                 int32_t eps_eff,
                                                 int32_t base_max) {
-  const int32_t g = min(max(seg, 0), ns - 2);
-  const int64_t x0 = sk[g];
-  const int64_t x1 = sk[g + 1];
-  const float y0 = spos[g];
-  const float y1 = spos[g + 1];
+  const int32_t g = min(max(pr.seg, 0), ns - 2);
+  const bool at = g == pr.seg;  // keys probed at seg are the segment's
+  const int64_t x0 = at && pr.has_x0 ? pr.x0 : ld.key(sk + g);
+  const int64_t x1 = at && pr.has_x1 ? pr.x1 : ld.key(sk + g + 1);
+  const float y0 = ld.rank(spos + g);
+  const float y1 = ld.rank(spos + g + 1);
   const float dx = fmaxf(u64_to_f32_pair(key_diff(x1, x0)), 1.0f);
   // a query below the segment start snaps to t = 0
   const float dq = (q < x0) ? 0.0f : u64_to_f32_pair(key_diff(q, x0));
@@ -114,6 +205,17 @@ __device__ __forceinline__ int32_t segment_base(const int64_t* sk,
   const float pred = __fadd_rn(y0, __fmul_rn(tt, __fsub_rn(y1, y0)));
   const int32_t base = static_cast<int32_t>(floorf(pred)) - eps_eff;
   return min(max(base, 0), base_max);
+}
+
+template <class L>
+__device__ __forceinline__ int32_t segment_base(const L& ld, const int64_t* sk,
+                                                const float* spos, int32_t ns,
+                                                int64_t q, int32_t seg,
+                                                int32_t eps_eff,
+                                                int32_t base_max) {
+  return segment_base(ld, sk, spos, ns, q,
+                      Predecessor{seg, false, false, 0, 0}, eps_eff,
+                      base_max);
 }
 
 // Eps-window probe as the reference writes it: first index in
@@ -153,22 +255,6 @@ __device__ __forceinline__ int64_t window_lower_bound(const int64_t* dk,
 // and then reads the one 8-key (64-byte) segment of the data plane that the
 // last sample below q starts (two levels: the 64-byte segment of level 1
 // first), evict-first, so the data stream does not push the summary out.
-
-constexpr int kSegment = 8;  // keys a sample stands for: 64 bytes
-
-// L2 policy for the summary's loads: evict its lines last.
-__device__ __forceinline__ uint64_t summary_policy() {
-  uint64_t pol;
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
-  return pol;
-}
-
-__device__ __forceinline__ int64_t load_kept(const int64_t* p, uint64_t pol) {
-  int64_t v;
-  asm("ld.global.nc.L2::cache_hint.b64 %0, [%1], %2;"
-      : "=l"(v) : "l"(p), "l"(pol));
-  return v;
-}
 
 // Largest i in [lo, hi] with s[i] < q, else lo - 1: a bisect over samples
 // kept in L2 (at most bit_length(hi - lo + 1) trips).

@@ -48,6 +48,8 @@
 //
 // Bit-exactness with the reference: the device functions of plex_device.cuh
 // (shared with K2-K4) round the interpolation exactly as the reference does.
+// One departure: the radix prefix saturates where the reference's wraps for a
+// key far past the last one (radix_window; ROADMAP queue 3, R5).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -119,25 +121,26 @@ stacked_lookup_kernel(const PlexParams p) {
     const int64_t srow = static_cast<int64_t>(s) * p.n_spline_max;
 
     // 2. window [lo, hi] of local spline indices
+    const PlainLoad ld{};
     int32_t lo, hi;
     if (KIND == kRadix) {
-      table_window(p.table + __ldg(p.table_off + s),
-                   radix_prefix_wrapped(q, __ldg(p.lmin + s), __ldg(p.shift + s),
-                                        __ldg(p.p_max + s)),
+      radix_window(ld, p.table + __ldg(p.table_off + s), q,
+                   __ldg(p.lmin + s), __ldg(p.shift + s), __ldg(p.p_max + s),
                    lo, hi);
     } else {
-      lo = cht_descend(p.cells + __ldg(p.cells_off + s), q, p.r, p.levels);
+      lo = cht_descend(ld, p.cells + __ldg(p.cells_off + s), q, p.r,
+                       p.levels);
       hi = min(lo + __ldg(p.delta + s), ns - 1);
     }
 
     // 3. spline predecessor: largest i in [lo, hi] with sk[i] <= q
-    const int32_t seg = spline_predecessor<SPLINE_BISECT>(
-        p.sk + srow, ns, q, lo, hi, p.search_width, p.search_trips);
+    const int32_t seg = spline_predecessor<SPLINE_BISECT ? kBisect : kCount>(
+        ld, p.sk + srow, ns, q, lo, hi, p.search_width, p.search_trips);
 
     // 4. float32 interpolation -> window base
-    const int32_t base = segment_base(p.sk + srow, p.spos + srow, ns, q, seg,
-                                      p.eps_eff,
-                                      static_cast<int32_t>(p.n_data_max - p.window));
+    const int32_t base = segment_base(
+        ld, p.sk + srow, p.spos + srow, ns, q, seg, p.eps_eff,
+        static_cast<int32_t>(p.n_data_max - p.window));
 
     // 5. eps-window probe: first index in [base, base + window] with key >= q
     const int64_t* drow = p.dk + static_cast<int64_t>(s) * p.n_data_max;

@@ -11,8 +11,9 @@ load per key beats two 4-byte loads, so the port keeps each key as one
 * the exact 64-bit difference ``a - b (mod 2^64)`` of two keys is the int64
   difference of their biased forms, wrapping: the bias cancels;
 * where the reference needs the hi/lo words of such a difference
-  (``pair_to_f32``, the radix prefix shift) they are split out with masks —
-  an arithmetic shift of a negative int64 needs ``& 0xFFFFFFFF``.
+  (``pair_to_f32``) they are split out with masks — an arithmetic shift of
+  a negative int64 needs ``& 0xFFFFFFFF``; the radix prefix shifts the
+  whole difference (``shr_sat``).
 
 Host helpers take and give numpy arrays; the tensor helpers work on any
 device and are what the plain PyTorch pipeline is written in.
@@ -68,20 +69,18 @@ def diff_to_f32(d: torch.Tensor) -> torch.Tensor:
     return hi.to(torch.float32) * 4294967296.0 + lo.to(torch.float32)
 
 
-def shr_low32(d: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Low 32 bits of ``(u64) d >> s`` for a per-element shift ``0 <= s <
-    64``, as a non-negative int64 (the reference's ``pair_shr_dyn``)."""
-    hi, lo = split_words(d)
-    wide = s >= 32
-    sa = torch.where(wide, s - 32, s)
-    narrow = ((lo >> sa) | (hi << (32 - sa))) & _LOW32
-    return torch.where(wide, hi >> sa, narrow)
-
-
-def low32_to_i32(x: torch.Tensor) -> torch.Tensor:
-    """Reinterpret a 32-bit word held in int64 as a signed int32 value (the
-    reference's ``uint32.astype(int32)``, which wraps past 2^31)."""
-    return torch.where(x >= (1 << 31), x - (1 << 32), x)
+def shr_sat(d: torch.Tensor, s, cap) -> torch.Tensor:
+    """``min((u64) d >> s, cap)`` for a u64 bit pattern held in int64 and a
+    shift ``0 <= s < 64`` (an int, or one per element): the whole shifted
+    value, saturated, where the reference keeps its low 32 bits
+    (``pair_shr_dyn``) and so wraps for a key far past the last one
+    (ROADMAP queue 3, R5). Below 2^31 the two agree."""
+    s = torch.as_tensor(s, device=d.device)
+    cap = torch.as_tensor(cap, device=d.device)
+    half = (d >> 1) & MAX_BIASED            # (u64) d >> 1, non-negative
+    # for s == 0 the value is d itself, negative when it is >= 2^63
+    v = torch.where(s > 0, half >> torch.clamp(s - 1, min=0), d)
+    return torch.where(v < 0, cap, torch.minimum(v, cap))
 
 
 def extract_bits(b: torch.Tensor, offset: int, r: int) -> torch.Tensor:

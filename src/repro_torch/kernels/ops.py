@@ -8,11 +8,13 @@ on the device; ``DevicePlex.lookup`` runs the batched pipeline
     K2 or K3 (``segment_lookup``: window bases) ->
     K4 (``bounded_search``: the eps-window probe) -> finalize
 
-with one launch of each kernel per call on a CUDA device, whatever the
-batch size. The reference gathers the ``[B, W]`` data windows in XLA between
-its two kernels; here K4 reads the data plane itself, through the planes'
-key summary. The reference's
-deprecated ``lookup_planes`` shim is not ported.
+where K2/K3 and K4 run as one launch per call on a CUDA device, whatever
+the batch size (``segment_lookup.window_probe``: K4's summary probe on the
+window base in registers; measured faster than the two launches on every
+dataset, PERF.md). The reference gathers the ``[B, W]`` data windows in XLA
+between its two kernels; here the probe reads the data plane itself,
+through the planes' key summary. The reference's deprecated
+``lookup_planes`` shim is not ported.
 """
 from __future__ import annotations
 
@@ -23,18 +25,17 @@ import torch
 
 from ..core.plex import PLEX
 from ..device import resolve_device
-from .bounded_search import DEFAULT_PROBE, bounded_search
 from .keys import to_biased
 from .planes import PlexPlanes, build_planes, finalize_indices, pad_queries
-from .segment_lookup import window_base
+from .segment_lookup import window_probe
 
 DEFAULT_BLOCK = 512
 
 
 @dataclasses.dataclass
 class DevicePlex:
-    """One PLEX on one device: its planes and the batch block. K4 runs in
-    its default probe form (``bounded_search.DEFAULT_PROBE``)."""
+    """One PLEX on one device: its planes and the batch block. The probe
+    runs in its summary form (``bounded_search``'s ``"bisect"``)."""
     planes: PlexPlanes
     block: int
 
@@ -56,7 +57,4 @@ class DevicePlex:
         pp = self.planes
         qp, b = pad_queries(q, self.block)
         qd = torch.from_numpy(to_biased(qp)).to(pp.device)
-        out = bounded_search(pp.dk, qd, window_base(pp, qd),
-                             window=pp.window, mode=DEFAULT_PROBE,
-                             summary=pp.summary)
-        return finalize_indices(out, b, pp.n_real)
+        return finalize_indices(window_probe(pp, qd), b, pp.n_real)

@@ -9,9 +9,9 @@ Per query, one pass does what the reference splits over
 ``repro.kernels.stacked_pallas.stacked_pallas_lookup``:
 
 1. route: shard id = #{shard minima <= q} - 1, clipped to ``[0, S-1]``;
-2. window over spline points: radix prefix ``(q - min) >> shift`` (low 32
-   bits, cast to int32, clipped to ``[0, p_max]``) bounded by two table
-   entries, or a CHT descent over ``levels`` cells (top bit = child);
+2. window over spline points: radix prefix ``(q - min) >> shift`` (0 below
+   min, saturated at ``p_max``) bounded by two table entries, or a CHT
+   descent over ``levels`` cells (top bit = child);
 3. spline predecessor in that window, by count or by fixed-trip bisect;
 4. float32 interpolation on the exact 64-bit key difference, bit for bit as
    the reference rounds it; base = ``clip(floor(pred) - eps_eff, 0,
@@ -22,6 +22,12 @@ Per query, one pass does what the reference splits over
    planes' ``KeySummary``);
 6. clamp to the shard's real key count and add its global row offset;
 7. with a live delta buffer (``cap > 0``): add ``cum0[# delta keys < q]``.
+
+One departure from the reference: its radix prefix keeps the low 32 bits of
+the shifted difference, which sends a key far past the last one on a narrow
+radix shard to an arbitrary bucket and a wrong rank (ROADMAP queue 3, R5);
+here the whole shifted difference saturates at the last bucket, as in K2.
+Where ``(q - min) >> shift < 2^31`` both give the same prefix.
 
 ``stacked_lookup_plain`` writes these steps in torch int64/float32 ops and
 runs on any device; ``stacked_lookup`` dispatches on the query tensor's
@@ -50,10 +56,10 @@ from ..device import resolve_device
 from ._build import check_launch, check_params_size, device_ptr, load_library
 from .bounded_search import DEFAULT_PROBE, PROBE_MODES, probe_lower_bound, \
     summary_lower_bound
-from .keys import diff, extract_bits, le, low32_to_i32, lt, shr_low32, \
-    take as _take, to_biased
+from .keys import diff, extract_bits, le, lt, take as _take, to_biased
 from .planes import DeltaPlanes, StackedPlanes, build_stacked_planes
-from .segment_lookup import cht_geometry, interp, radix_geometry
+from .segment_lookup import cht_geometry, interp, radix_geometry, \
+    radix_window
 
 DEFAULT_BLOCK = 512
 
@@ -88,15 +94,9 @@ def _spline_window(sp: StackedPlanes, q: torch.Tensor, sid: torch.Tensor,
         lmin = _take(la["lmin"], sid)
         below = lt(q, lmin)
         d = torch.where(below, torch.zeros_like(q), diff(q, lmin))
-        pfx = low32_to_i32(shr_low32(d, _take(la["shift"], sid).long()))
-        # clip below 0 too: a huge absent query on a small-shift shard can
-        # wrap the int32 cast negative
-        p = torch.minimum(torch.clamp(pfx, min=0),
-                          _take(la["p_max"], sid).long())
-        toff = _take(la["table_off"], sid).long()
-        lo = torch.clamp(_take(la["table"], toff + p).long() - 1, min=0)
-        hi = torch.clamp(_take(la["table"], toff + p + 1).long() - 1, min=0)
-        return lo, hi
+        return radix_window(la["table"], d, _take(la["shift"], sid).long(),
+                            _take(la["p_max"], sid).long(),
+                            off=_take(la["table_off"], sid).long())
     r = s["r"]
     coff = _take(la["cells_off"], sid).long()
     node = torch.zeros_like(q)

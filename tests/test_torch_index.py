@@ -238,17 +238,19 @@ def test_cuda_without_a_card_raises():
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["face", "osm"])
 def test_one_launch_of_each_kernel_per_lookup_on_card(name):
-    """On a CUDA card: one K2-or-K3 launch and one K4 launch per lookup,
-    whatever the batch, and the ranks of the plain pipeline."""
+    """On a CUDA card: one launch of K2-or-K3 fused with K4 per lookup,
+    whatever the batch (and no launch of either alone), and the ranks of
+    the plain pipeline."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     keys = generate(name, 40_000, 0)
     idx = LearnedIndex.build(keys.copy(), 32, device="cuda")
     idx.warmup()
     q = _queries(keys, np.random.default_rng(1))
-    seg0, bs0 = SEG.launches, BS.launches
+    seg0, bs0, fused0 = SEG.launches, BS.launches, SEG.fused_launches
     got = idx.lookup(q)
-    assert (SEG.launches - seg0, BS.launches - bs0) == (1, 1)
+    assert (SEG.launches - seg0, BS.launches - bs0,
+            SEG.fused_launches - fused0) == (0, 0, 1)
     cpu = LearnedIndex(plex=idx.plex, device="cpu")
     assert np.array_equal(got, cpu.lookup(q))
     assert np.array_equal(got, np.searchsorted(keys, q, "left"))

@@ -84,15 +84,27 @@ def test_diff_to_f32_rounds_twice_not_once():
     assert got[0] != x.astype(np.float32)[0]
 
 
-def test_shr_low32_matches_pair_shr_dyn(u64):
+@pytest.mark.parametrize("cap", [0, 255, (1 << 20) - 1, (1 << 31) - 1])
+def test_shr_sat_saturates_the_whole_shift(u64, cap):
+    """The radix prefix of both plain pipelines: ``min(d >> s, cap)`` over
+    the whole u64 (R5). Wherever ``d >> s < 2^31`` it is the reference's
+    low-32-bit shift (``pair_shr_dyn``), cast to int32 and clipped."""
     d = np.repeat(u64, 64)
     s = np.tile(np.arange(64, dtype=np.int64), u64.size)
+    got = K.shr_sat(torch.from_numpy(d.view(np.int64)), torch.from_numpy(s),
+                    cap).numpy()
+    full = [int(x) >> int(k) for x, k in zip(d, s)]
+    assert got.tolist() == [min(v, cap) for v in full]
     dh, dl = _pair(d)
-    want = np.asarray(pairs.pair_shr_dyn(dh, dl, jnp.asarray(s, jnp.int32)))
-    got = K.shr_low32(torch.from_numpy(d.view(np.int64)), torch.from_numpy(s))
-    assert np.array_equal(got.numpy(), want.astype(np.int64))
-    assert np.array_equal(K.low32_to_i32(got).numpy(),
-                          want.astype(np.int32).astype(np.int64))
+    ref = np.asarray(pairs.pair_shr_dyn(dh, dl, jnp.asarray(s, jnp.int32)))
+    ref = np.clip(ref.astype(np.int32).astype(np.int64), 0, cap)
+    narrow = np.asarray(full, dtype=object) < (1 << 31)
+    assert narrow.any() and not narrow.all()
+    assert np.array_equal(got[narrow], ref[narrow])
+    # a scalar shift gives the same as one per element
+    assert np.array_equal(
+        K.shr_sat(torch.from_numpy(u64.view(np.int64)), 0, cap).numpy(),
+        got[::64])
 
 
 @pytest.mark.parametrize("r", [1, 3, 6, 8, 16, 30])

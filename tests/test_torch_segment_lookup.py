@@ -3,13 +3,16 @@
 Window bases of ``repro_torch.kernels.segment_lookup`` (plain versions,
 which run here) are held bit for bit against the reference's Pallas kernels
 ``radix_segment_lookup`` / ``cht_segment_lookup`` in interpret mode and
-against the dense oracle ``ref.window_base_ref``, over {radix, CHT} x {spline
-count, bisect} with forced layers. The K4 probe ``bounded_search`` is held,
-in both forms, against the reference's ``bounded_search`` on windows
-gathered from the same plane and against ``lower_bound_ref``. The plain
-versions refuse out-of-bounds gathers, so every case also shows that no
-gather leaves its plane. ``gpu`` tests hold the kernels against the plain
-versions on a card.
+against the dense oracle ``ref.window_base_ref``, in every search form
+(count, bisect, adaptive) over forced radix and CHT layers whose spline
+windows span 1 to 992 points (8 and ``COUNT_MODE_MAX`` points among them),
+on unique keys, duplicated keys and the one-point spline of R4; the fused
+K2/K3 + K4 form's plain version is K4 on those bases. The K4 probe
+``bounded_search`` is held, in both forms, against the reference's
+``bounded_search`` on windows gathered from the same plane and against
+``lower_bound_ref``. The plain versions refuse out-of-bounds gathers, so
+every case also shows that no gather leaves its plane. ``gpu`` tests hold
+the kernels against the plain versions on a card.
 """
 import dataclasses
 
@@ -56,6 +59,36 @@ def keys():
     return np.unique(rng.integers(0, 1 << 48, 30_000, dtype=np.uint64))
 
 
+def _key_set(name, keys):
+    if name == "unique":
+        return keys
+    if name == "dups":
+        rng = np.random.default_rng(12)
+        k = keys.copy()
+        k[rng.integers(0, k.size, 6_000)] = k[rng.integers(0, k.size, 6_000)]
+        return np.sort(k)
+    return np.full(300, 7, np.uint64)          # "one": a one-point spline (R4)
+
+
+# (id, key set, eps, layer kind, layer parameters); the widest spline window
+# (max_win, or delta + 1) in the comment. The first two are the forced
+# layers the other tests use.
+WINDOW_CASES = [
+    ("radix", "unique", 8, "radix", dict(r=8)),        # 5 points
+    ("cht", "unique", 8, "cht", dict(r=4, delta=16)),  # 17
+    ("radix-2", "unique", 8, "radix", dict(r=12)),     # 2: windows of 1, 2
+    ("radix-992", "unique", 1, "radix", dict(r=3)),    # 992
+    ("cht-2", "unique", 8, "cht", dict(r=4, delta=1)),
+    ("cht-8", "unique", 2, "cht", dict(r=6, delta=7)),
+    ("cht-512", "unique", 1, "cht", dict(r=4, delta=511)),
+    ("cht-701", "unique", 1, "cht", dict(r=4, delta=700)),
+    ("radix-dups", "dups", 4, "radix", dict(r=6)),
+    ("cht-dups", "dups", 4, "cht", dict(r=4, delta=32)),
+    ("radix-one", "one", 8, "radix", dict(r=1)),
+    ("cht-one", "one", 8, "cht", dict(r=2, delta=1)),
+]
+
+
 def _queries(keys, rng, n=2048):
     """Present keys, absent ones in and beyond the key range, and edges."""
     edges = np.asarray([0, 1, int(keys[0]) - 1, int(keys[0]),
@@ -63,7 +96,8 @@ def _queries(keys, rng, n=2048):
                         1 << 63], dtype=np.uint64)
     body = np.concatenate([
         keys[rng.integers(0, keys.size, n - 400 - edges.size)],
-        rng.integers(keys[0], keys[-1], 300, dtype=np.uint64),
+        rng.integers(keys[0], max(keys[-1], keys[0] + 1), 300,
+                     dtype=np.uint64),
         rng.integers(0, U64_MAX, 100, dtype=np.uint64, endpoint=True)])
     return np.concatenate([edges, body])
 
@@ -96,28 +130,39 @@ def _port_planes(px, mode):
     return pp
 
 
-@pytest.mark.parametrize("mode", ["count", "bisect"])
-@pytest.mark.parametrize("kind", ["radix", "cht"])
-def test_window_bases_match_pallas_kernel(kind, mode, keys):
+@pytest.mark.parametrize("mode", SEG.SEARCH_FORMS)
+@pytest.mark.parametrize("case", WINDOW_CASES, ids=[c[0] for c in WINDOW_CASES])
+def test_window_bases_match_pallas_kernel(case, mode, keys):
+    """Each search form's plain version against the reference's Pallas
+    kernel (the adaptive form against its bisect, which equals its count),
+    on present keys, absent ones, keys below the minimum and past the end,
+    and every spline point."""
+    _, key_set, eps, kind, layer_kw = case
+    k = _key_set(key_set, keys)
     rng = np.random.default_rng(1)
-    px = _forced(keys, 8, kind)
-    q = _queries(keys, rng)
+    px = _forced(k, eps, kind, **layer_kw)
+    q = np.concatenate([_queries(np.unique(k), rng), px.spline.keys])
     pp = _port_planes(px, mode)
     assert pp.kind == kind
     qt = torch.from_numpy(to_biased(q))
     before = SEG.launches
     got = SEG.window_base(pp, qt)
     assert SEG.launches == before and got.dtype == torch.int32
-    want = _reference_bases(px, q, mode)
+    want = _reference_bases(px, q, "bisect" if mode == "adaptive" else mode)
     assert np.array_equal(got.numpy().astype(np.int64), want), \
         np.flatnonzero(got.numpy() != want)[:5]
-    assert torch.equal(got, SEG.window_base_plain(pp, qt))
+    for form in SEG.SEARCH_FORMS:
+        assert torch.equal(got, SEG.window_base_plain(pp, qt, form))
     # the dense oracle agrees wherever it is defined (q >= the first key)
-    inside = q >= keys[0]
+    inside = q >= k[0]
     oracle = TREF.window_base_ref(qt[inside], pp.sk, pp.spos,
                                   eps_eff=pp.eps_eff, n_data=pp.n_data,
                                   window=pp.window)
     assert torch.equal(got[inside], oracle)
+    # the fused form's plain version is K4's summary probe on these bases
+    assert torch.equal(SEG.window_probe_plain(pp, qt, mode),
+                       BS.bounded_search(pp.dk, qt, got, window=pp.window,
+                                         summary=pp.summary))
 
 
 @pytest.mark.parametrize("kind", ["radix", "cht"])
@@ -218,10 +263,10 @@ def test_radix_prefix_past_the_end_is_saturated():
     from repro_torch.core import LearnedIndex
     port = LearnedIndex(plex=_port_plex(px), device="cpu")
     assert np.array_equal(port.lookup(q), want)
-    for mode in ("count", "bisect"):
+    for mode in SEG.SEARCH_FORMS:
         pp = _port_planes(px, mode)
         got = SEG.window_base(pp, torch.from_numpy(to_biased(q))).numpy()
-        ref = _reference_bases(px, q, mode)
+        ref = _reference_bases(px, q, "bisect" if mode == "adaptive" else mode)
         assert np.array_equal(got[far.size:], ref[far.size:])
         assert not np.array_equal(got[:far.size], ref[:far.size])
     # the reference's fault (R5); if this starts to pass, R5 was fixed
@@ -255,19 +300,23 @@ def _cuda():
 @pytest.mark.parametrize("kind", ["radix", "cht"])
 def test_segment_kernel_matches_plain_on_card(kind, keys):
     """On a CUDA card: K2/K3 against the plain version on the same device
-    inputs, both spline modes, exactly (``python3 chip_smoke.py`` does the
-    same at 2^24 keys)."""
+    inputs, every search form and the card's default, alone and fused with
+    K4, exactly (``python3 chip_smoke.py`` does the same at 2^24 keys)."""
     dev = _cuda()
     rng = np.random.default_rng(7)
     px = _forced(keys, 8, kind)
     pp = TP.build_planes(_port_plex(px), dev)
     q = torch.from_numpy(to_biased(_queries(keys, rng))).to(dev)
-    for mode in ("count", "bisect"):
-        pp.static["mode"] = mode
+    want = SEG.window_base_plain(pp, q)
+    for mode in (None, *SEG.SEARCH_FORMS):
         before = SEG.launches
-        got = SEG.window_base(pp, q)
+        got = SEG.window_base(pp, q, mode)
         assert SEG.launches == before + 1
-        assert torch.equal(got, SEG.window_base_plain(pp, q))
+        assert torch.equal(got, want)
+        before = SEG.fused_launches
+        got = SEG.window_probe(pp, q, mode)
+        assert SEG.fused_launches == before + 1
+        assert torch.equal(got, SEG.window_probe_plain(pp, q))
 
 
 @pytest.mark.gpu

@@ -3,8 +3,9 @@
 The same keys, lookups, inserts, deletes and merges go through
 ``repro.serving.PlexService(backend="jnp")`` and
 ``repro_torch.serving.PlexService(device="cpu")``; every answer must be
-identical, and present keys must equal searchsorted over the logical key
-array. Both the fused path (shards unify) and the per-shard path (mixed
+identical (past the end of a narrow radix shard, where the reference's
+radix prefix wraps, the port's equals searchsorted instead: R5), and
+present keys must equal searchsorted over the logical key array. Both the fused path (shards unify) and the per-shard path (mixed
 radix/CHT shards) are driven. ``convert.snapshot_from_arrays`` is held to
 serve a reference-built index unchanged.
 """
@@ -21,6 +22,8 @@ from repro.serving import PlexService as RService
 from repro_torch.convert import snapshot_from_arrays
 from repro_torch.kernels import planes as TP
 from repro_torch.serving import PlexService
+
+from test_torch_stacked_lookup import _wrapped
 
 U64_MAX = (1 << 64) - 1
 
@@ -160,17 +163,26 @@ def test_snapshot_from_arrays_serves_reference_index(name):
         assert (hp_a.kind, hp_a.eps_eff, hp_a.window, hp_a.n_data) == \
             (hp_b.kind, hp_b.eps_eff, hp_b.window, hp_b.n_data)
         q = _queries(a.keys, rng)
-        got = port.shard_impl(s, block=512).lookup(q)
+        impl = port.shard_impl(s, block=512)
+        got = impl.lookup(q)
         want = StackedJnpPlex.from_plexes([b.plex], np.zeros(1, np.int64),
                                           block=512, probe="bisect").lookup(q)
-        assert np.array_equal(got, want)
+        # past the end of a narrow radix shard the reference's prefix
+        # wraps and the port's saturates (R5)
+        wrap = _wrapped(impl.planes, q)
+        assert np.array_equal(got[~wrap], want[~wrap])
+        assert np.array_equal(got[wrap],
+                              np.searchsorted(a.keys, q[wrap], "left"))
     st = port.stacked_impl(block=512)
     rj = StackedJnpPlex.from_plexes([s.plex for s in ref.shards],
                                     ref.offsets, block=512, probe="bisect")
     assert (st is None) == (rj is None)
     if st is not None:
         q = _queries(keys, rng)
-        assert np.array_equal(st.lookup(q), rj.lookup(q))
+        got, wrap = st.lookup(q), _wrapped(st.planes, q)
+        assert np.array_equal(got[~wrap], rj.lookup(q)[~wrap])
+        assert np.array_equal(got[wrap],
+                              np.searchsorted(keys, q[wrap], "left"))
 
 
 def test_delta_buffer_matches_reference():

@@ -8,6 +8,11 @@ over the variant matrix {radix, CHT} x {spline count, bisect} x {probe
 count, bisect} x {no delta, live delta}, plus one case through the Pallas
 kernel itself in interpret mode. The plain version refuses out-of-bounds
 gathers, so every case also shows that no gather leaves its plane.
+
+The port's radix prefix saturates where the reference's wraps (ROADMAP queue
+3, R5): queries whose prefix on their shard reaches 2^31 (keys far past the
+end of a narrow radix shard) are held to ``np.searchsorted`` over the
+logical keys instead, and every other query to the reference bit for bit.
 """
 import dataclasses
 
@@ -26,7 +31,7 @@ from repro.kernels.stacked_pallas import stacked_pallas_lookup
 from repro.serving.delta import DeltaBuffer as RDelta
 from repro_torch.kernels import planes as TP
 from repro_torch.kernels import stacked_lookup as SL
-from repro_torch.kernels.keys import to_biased
+from repro_torch.kernels.keys import from_biased, to_biased
 from repro_torch.serving.delta import DeltaBuffer as TDelta
 
 from conftest import sorted_u64
@@ -116,6 +121,20 @@ def _reference(sp, probe, q, dp):
                  for a in jax.jit(fn)(*args))
 
 
+def _wrapped(tsp, q):
+    """Queries whose radix prefix ``(q - min) >> shift`` on their routed
+    shard reaches 2^31: there the reference's low-32-bit prefix wraps and
+    the port's saturates (R5). None on a CHT layer."""
+    if tsp.kind != "radix":
+        return np.zeros(q.size, dtype=bool)
+    mins = from_biased(tsp.shard_min.numpy())
+    sid = np.clip(np.searchsorted(mins, q, "right") - 1, 0, mins.size - 1)
+    lmin = from_biased(tsp.layer_arrays["lmin"].numpy())[sid]
+    shift = tsp.layer_arrays["shift"].numpy()[sid]
+    return np.asarray([x >= m and (int(x) - int(m)) >> int(k) >= 1 << 31
+                       for x, m, k in zip(q, lmin, shift)], dtype=bool)
+
+
 def _port(tsp, probe, q, tdp):
     out, sid, base = SL.stacked_lookup(
         tsp, probe, torch.from_numpy(to_biased(q)), tdp, aux=True)
@@ -135,7 +154,7 @@ def _delta(keys, rng):
         b.delete(dels)
         b.insert(dels[:5])
     return bufs[0].device_view(), bufs[1].device_view("cpu"), \
-        np.concatenate([ins, dels])
+        np.concatenate([ins, dels]), bufs[1].logical_keys()
 
 
 @pytest.mark.parametrize("fold", [False, True], ids=["cap0", "delta"])
@@ -154,13 +173,20 @@ def test_variant_matrix_matches_reference(kind, spline_mode, probe, fold,
         assert len(set(np.asarray(sp.layer_arrays["delta"]))) == 3
     rdp = tdp = None
     extra = ()
+    logical = keys
     if fold:
-        rdp, tdp, extra = _delta(keys, rng)
+        rdp, tdp, extra, logical = _delta(keys, rng)
     q = _queries(keys, offs, rng, extra)
     want = _reference(sp, probe, q, rdp)
     got = _port(tsp, probe, q, tdp)
+    wrap = _wrapped(tsp, q)
+    assert wrap.any() == (kind == "radix")
     for name, g, w in zip(("ranks", "shard ids", "window bases"), got, want):
-        assert np.array_equal(g, w), (name, np.flatnonzero(g != w)[:5])
+        assert np.array_equal(g[~wrap], w[~wrap]), \
+            (name, np.flatnonzero(g[~wrap] != w[~wrap])[:5])
+    assert np.array_equal(got[1][wrap], want[1][wrap])
+    assert np.array_equal(got[0][wrap],
+                          np.searchsorted(logical, q[wrap], "left"))
 
 
 def test_fused_pallas_kernel_interpret(keys, offs):
@@ -170,14 +196,19 @@ def test_fused_pallas_kernel_interpret(keys, offs):
     pxs = _forced(keys, offs, "radix")
     sp = RP.build_stacked_planes(pxs, offs)
     tsp = TP.build_stacked_planes([_port_plex(p) for p in pxs], offs, "cpu")
-    rdp, tdp, extra = _delta(keys, rng)
+    rdp, tdp, extra, logical = _delta(keys, rng)
     q, n = RP.pad_queries(_queries(keys, offs, rng, extra)[:1_000], 512)
     qh, ql = split_u64(q)
     want = stacked_pallas_lookup(
         sp, "bisect", rdp.cap, jnp.asarray(qh), jnp.asarray(ql), rdp.khi,
         rdp.klo, rdp.cum0, block=512, interpret=True)
     got = _port(tsp, "bisect", q, tdp)[0]
-    assert np.array_equal(got, np.asarray(want).astype(np.int64))
+    wrap = _wrapped(tsp, q)
+    assert wrap.any()
+    assert np.array_equal(got[~wrap],
+                          np.asarray(want).astype(np.int64)[~wrap])
+    assert np.array_equal(got[wrap],
+                          np.searchsorted(logical, q[wrap], "left"))
 
 
 @pytest.mark.parametrize("name", ["face", "osm", "wiki"])
@@ -199,10 +230,53 @@ def test_tuned_snapshot_matches_reference(name):
         pytest.skip("shards do not unify at this size")
     q = _queries(keys, port.offsets, rng)
     got = st.lookup(q)
-    assert np.array_equal(got, rj.lookup(q))
+    wrap = _wrapped(st.planes, q)
+    assert np.array_equal(got[~wrap], rj.lookup(q)[~wrap])
+    assert np.array_equal(got[wrap], np.searchsorted(keys, q[wrap], "left"))
     present = np.isin(q, keys)
     assert np.array_equal(got[present],
                           np.searchsorted(keys, q[present], "left"))
+
+
+@pytest.mark.parametrize("spline_mode", ["count", "bisect"])
+def test_far_past_the_end_keys_are_saturated(spline_mode):
+    """Keys far past the end (2^64 - 1, 2^63, the last key + 2^52) over
+    two wide shards and a narrow radix shard (a 2^26 span above 2^40, shift
+    18 or so): their prefix ``(q - min) >> shift`` reaches 2^46. The
+    reference keeps its low 32 bits, which lands in an arbitrary bucket, and
+    its stacked path answers wrong ranks (ROADMAP queue 3, R5). The port
+    saturates the prefix at the last bucket: its plain stacked pipeline, in
+    both spline modes and both probes, and its ``PlexService`` on the CPU
+    answer ``np.searchsorted``."""
+    from repro_torch.serving.plex_service import PlexService
+    rng = np.random.default_rng(9)
+    keys = np.concatenate([
+        sorted_u64(rng, 12_000, dups=True, spread=39),
+        np.sort((1 << 40) + rng.integers(0, 1 << 26, 6_000,
+                                         dtype=np.uint64))])
+    offs = np.asarray([0, 6_000, 12_000])
+    offs = np.searchsorted(keys, keys[offs], "left")
+    far = np.asarray([U64_MAX, 1 << 63, int(keys[-1]) + (1 << 52)],
+                     dtype=np.uint64)
+    want = np.searchsorted(keys, far, "left")
+    pxs = _forced(keys, offs, "radix")
+    tsp = TP.build_stacked_planes([_port_plex(p) for p in pxs], offs, "cpu")
+    tsp.static["mode"] = spline_mode
+    assert _wrapped(tsp, far).all()
+    for probe in ("count", "bisect"):
+        assert np.array_equal(_port(tsp, probe, far, None)[0], want)
+    svc = PlexService(keys.copy(), eps=16, n_shards=3, device="cpu")
+    assert svc.fused and svc.snapshot.shards[2].layer.shift <= 32
+    assert np.array_equal(svc.lookup(far), want)
+    # the reference's fault (R5); if this starts to pass, R5 was fixed
+    ref = R.Snapshot.build(keys.copy(), 16, n_shards=3)
+    rj = RJ.StackedJnpPlex.from_plexes([s.plex for s in ref.shards],
+                                       ref.offsets, block=512,
+                                       probe="bisect")
+    assert not np.array_equal(rj.lookup(far), want)
+    sp = RP.build_stacked_planes(pxs, offs)
+    sp.static["mode"] = spline_mode
+    assert not np.array_equal(_reference(sp, "bisect", far, None)[0], want)
 
 
 @pytest.mark.parametrize("probe", ["count", "bisect"])
