@@ -8,14 +8,23 @@ Builds the port's CUDA kernels (and ``tools/segment_split.cu``) from this
 checkout's sources, holds each against its plain PyTorch version on the
 card, then drives the port's three paths:
 
-* serving (K1): every kernel variant against the plain version, and keys
-  far past the end of a narrow radix shard against ``np.searchsorted``
-  (R5); a PlexService over 200M SOSD-scale ``amzn`` keys answering
-  lookup requests, merged lookups after inserts and deletes, and a merge;
-  each request's launches replayed as served (the overlap of programmatic
-  dependent launch included), with one summary level against two and
-  overlap against none, and K4 on the 200M-key plane, one level against
-  two;
+* serving (K1): every kernel variant against the plain version, each
+  also with the hot-key cache (a cold pass, a warm pass whose every lane
+  hits, and the tear stress: 2^20 lanes over 64 keys of one slot, 100
+  launches) and with the counter plane, and keys far past the end of a
+  narrow radix shard against ``np.searchsorted`` (R5); a PlexService over
+  200M SOSD-scale ``amzn`` keys answering lookup requests, merged lookups
+  after inserts and deletes, and a merge; each request's launches replayed
+  as served (the overlap of programmatic dependent launch included), with
+  one summary level against two and overlap against none, and K4 on the
+  200M-key plane, one level against two;
+* the serving front end: a fused, cached service over 200M keys of an SOSD
+  dataset whose shards unify, on Zipf(1.2) traffic: requests with the
+  cache cold and warm, counted (live hotness and the probe histogram),
+  with a live delta, and with the cache off (``serve_cache``); 64 tickets
+  through ``submit`` filled by the deadline timer (``serve_queue``); a
+  background-merging service taking rounds of inserts and deletes while
+  it answers lookups (``merge_background``);
 * the per-index path (K2/K3 fused with K4 in one launch): ``LearnedIndex.
   lookup`` over 2^24 keys of each SOSD dataset (the most one index's float32
   rank plane holds), K2/K3 alone, K4 alone and the fused launch each held
@@ -70,6 +79,17 @@ DELTA_CAP = 4096
 INDEX_KEYS = 1 << 24              # the f32 rank plane's limit for one index
 INDEX_DATASETS = ("amzn", "face", "osm", "wiki")
 INDEX_LOOKUPS = 3                 # timed lookups per dataset
+CACHE_SLOTS = 1 << 20             # 16 MiB of 16-byte slots
+HOT_KEYS = 1 << 16                # the warm pass's distinct-slot keys
+TEAR_KEYS = 64                    # distinct keys of one slot
+TEAR_LAUNCHES = 100
+ZIPF_THETA = 1.2                  # benchmarks/serve_bench.py's skew
+CACHE_REQUESTS = 8
+QUEUE_TICKETS = 64
+QUEUE_MAX_DELAY_S = 0.002
+MERGE_ROUNDS = 16
+MERGE_ROUND_OPS = 1024
+MERGE_LOOKUPS = 1 << 16
 # HBM rate of one H100 SXM (NVIDIA's data sheet, at 700 W): the bound's
 # denominator; the measured copy rate is printed beside it
 PEAK_HBM_TBS = 3.35
@@ -244,6 +264,17 @@ def phase_kernel(device, seed: int, n_keys: int, n_queries: int) -> dict:
     q_np = make_queries(keys, n_queries, rng)
     q = torch.from_numpy(to_biased(q_np)).to(device)
     delta = buf.device_view(device)
+    logical = buf.logical_keys()
+
+    def with_want(k: np.ndarray):
+        """Device queries, and their ranks over (logical, snapshot) keys."""
+        return torch.from_numpy(to_biased(k)).to(device), tuple(
+            torch.from_numpy(np.searchsorted(lk, k, "left")).int()
+            .to(device) for lk in (logical, keys))
+    hot = distinct_slot_keys(keys, CACHE_SLOTS, HOT_KEYS, seed)
+    hot = with_want(hot[rng.integers(0, hot.size, n_queries)])
+    same = same_slot_keys(keys, CACHE_SLOTS, TEAR_KEYS, seed)
+    same = with_want(same[rng.integers(0, same.size, n_queries)])
     results, levels = [], []
     for kind in ("radix", "cht"):
         sp = build_stacked_planes(_forced(plexes, kind), offs, device)
@@ -267,17 +298,135 @@ def phase_kernel(device, seed: int, n_keys: int, n_queries: int) -> dict:
                                    sp, probe, q, dp), device),
                                plain_ms=device_ms(lambda: plain_chunked(
                                    sp, probe, q, dp), device, reps=2))
-                    results.append(row)
-                    emit("kernel", **row)
                     check(match and launches == (device.type == "cuda"),
                           f"kernel variant failed: {row}")
+                    row.update(kernel_cache_counters(
+                        sp, probe, q, dp, want[0], hot, same, device))
+                    results.append(row)
+                    emit("kernel", **row)
         levels.append(kernel_levels(sp, kind, q, device))
         del sp
     far = kernel_past_the_end(device, seed, n_queries)
     return dict(variants=len(results),
                 max_abs_err=max([r["max_abs_err"] for r in results]
                                 + [far["max_abs_err"]]),
-                levels=levels, past_the_end=far)
+                levels=levels, past_the_end=far,
+                tear_stress_ok=all(r["tear_stress_ok"] for r in results),
+                warm_all_hit=all(r["warm_full_hit"] for r in results))
+
+
+def same_slot_keys(keys: np.ndarray, n_slots: int, count: int,
+                   seed: int) -> np.ndarray:
+    """``count`` distinct keys inside ``keys``' range that share one cache
+    slot, built by inverting the slot hash: one high word taken from a key,
+    the low word solved for each of ``count`` hash values that end in the
+    slot's bits (``h ^= h >> 16`` is its own inverse on 32 bits; the
+    multiplier 0x9E3779B1 is odd, so it has an inverse mod 2^32). Checked
+    against the port's ``cache_slot``."""
+    import torch
+    from repro_torch.kernels.keys import to_biased
+    from repro_torch.kernels.stacked_lookup import cache_slot
+    rng = np.random.default_rng(seed)
+    target = int(rng.integers(0, n_slots))
+    hi = int(keys[keys.size // 2]) >> 32
+    inv = pow(0x9E3779B1, -1, 1 << 32)
+    out = []
+    for t in range(count):
+        h = t * n_slots | target
+        h ^= h >> 16
+        lo = ((h ^ (hi * 0x85EBCA77 & 0xFFFFFFFF)) * inv) & 0xFFFFFFFF
+        out.append(hi << 32 | lo)
+    out = np.asarray(out, np.uint64)
+    slot = cache_slot(torch.from_numpy(to_biased(out)), n_slots)
+    check(bool((slot == target).all()) and np.unique(out).size == count
+          and out.min() >= keys[0] and out.max() <= keys[-1],
+          "same-slot keys: the hash inversion failed")
+    return out
+
+
+def distinct_slot_keys(keys: np.ndarray, n_slots: int, count: int,
+                       seed: int) -> np.ndarray:
+    """``count`` keys of ``keys`` whose cache slots are pairwise
+    distinct."""
+    import torch
+    from repro_torch.kernels.keys import to_biased
+    from repro_torch.kernels.stacked_lookup import cache_slot
+    rng = np.random.default_rng(seed)
+    pool = keys[rng.integers(0, keys.size, 4 * count)]
+    slot = cache_slot(torch.from_numpy(to_biased(pool)), n_slots).numpy()
+    _, first = np.unique(slot, return_index=True)
+    check(first.size >= count, "too few distinct-slot keys")
+    return pool[np.sort(first)[:count]]
+
+
+def kernel_cache_counters(sp, probe, q, dp, want, hot, same,
+                          device) -> dict:
+    """One K1 variant with the cache and with the counters, each against
+    the plain version on the same inputs: a cold pass from an empty cache
+    (ranks equal, exactly), the counted pass (ranks and the counter plane
+    equal, exactly), a warm pass over ``hot`` (distinct-slot keys, queried
+    twice: the second time every lane hits and the launch is a full hit),
+    and the tear stress: ``TEAR_LAUNCHES`` launches over keys of one slot
+    (``same``), every rank equal to searchsorted over the logical keys
+    (``same[1]``)."""
+    import torch
+    from repro_torch.kernels import stacked_lookup as SL
+    n = q.numel()
+
+    def fresh_cache():
+        return torch.full((2 * CACHE_SLOTS,), -1, dtype=torch.int64,
+                          device=device)
+    hits = torch.zeros(1, dtype=torch.int32, device=device)
+    got = SL.stacked_lookup(sp, probe, q, dp, cache=fresh_cache(), hits=hits)
+    plain_hits = torch.zeros(1, dtype=torch.int32, device=device)
+    plain = plain_chunked_cached(sp, probe, q, dp, fresh_cache(), plain_hits)
+    cold_ok = torch.equal(got[0], want) and torch.equal(plain, want)
+    nc = sp.n_shards + SL.N_PROBE_BUCKETS
+    counters = torch.zeros(nc, dtype=torch.int64, device=device)
+    plain_counters = torch.zeros(nc, dtype=torch.int64, device=device)
+    got_c = SL.stacked_lookup(sp, probe, q, dp, counters=counters)
+    for i in range(0, n, BLOCK):
+        SL.stacked_lookup_plain(sp, probe, q[i:i + BLOCK], dp,
+                                counters=plain_counters)
+    counted_ok = torch.equal(got_c[0], want) and \
+        torch.equal(counters, plain_counters) and int(counters[:sp.n_shards]
+                                                      .sum()) == n
+    hq, hot_want = hot
+    cache = fresh_cache()
+    SL.stacked_lookup(sp, probe, hq, dp, cache=cache, hits=hits.zero_())
+    got_w = SL.stacked_lookup(sp, probe, hq, dp, cache=cache,
+                              hits=hits.zero_())
+    warm_hits = int(hits)
+    warm_ok = torch.equal(got_w[0], hot_want[0] if dp is not None
+                          else hot_want[1])
+    sq, same_want = same
+    sw = same_want[0] if dp is not None else same_want[1]
+    cache = fresh_cache()
+    tear_ok = True
+    for _ in range(TEAR_LAUNCHES):
+        got_t = SL.stacked_lookup(sp, probe, sq, dp, cache=cache,
+                                  hits=hits.zero_())
+        tear_ok &= torch.equal(got_t[0], sw)
+    row = dict(cached_match=cold_ok, plain_cold_hits=int(plain_hits),
+               counted_match=counted_ok,
+               counters=counters.cpu().tolist(),
+               warm_hits=warm_hits, warm_lanes=int(hq.numel()),
+               warm_full_hit=warm_hits == hq.numel() and warm_ok,
+               tear_stress_ok=tear_ok, tear_launches=TEAR_LAUNCHES)
+    check(cold_ok and counted_ok and row["warm_full_hit"] and tear_ok,
+          f"K1 with the cache or the counters failed: {row}")
+    return row
+
+
+def plain_chunked_cached(sp, probe, q, delta, cache, hits,
+                         chunk: int = BLOCK):
+    """The plain version with the cache over ``q`` in ``chunk``-sized
+    pieces (in order, as a dispatch's launches)."""
+    import torch
+    from repro_torch.kernels import stacked_lookup as SL
+    return torch.cat([SL.stacked_lookup_plain(
+        sp, probe, q[i:i + chunk], delta, cache=cache, hits=hits)[0]
+        for i in range(0, q.numel(), chunk)])
 
 
 def kernel_past_the_end(device, seed: int, n_queries: int) -> dict:
@@ -374,9 +523,9 @@ def _kinds(snap) -> dict:
 class recorded_launches:
     """Within the block, every ``stacked_lookup`` call that serving makes
     is passed through and its arguments kept in ``calls`` (planes, probe,
-    queries, delta, overlap): the served request's own launches, replayed
-    afterwards for device times and for the comparison with the plain
-    version."""
+    queries, delta, overlap, and the keywords as given: the cache, hits or
+    counters): the served request's own launches, replayed afterwards for
+    device times and for the comparison with the plain version."""
 
     def __enter__(self):
         from repro_torch.kernels import stacked_lookup as SL
@@ -384,7 +533,7 @@ class recorded_launches:
 
         def record(sp, probe, q, delta=None, **kw):
             self.calls.append((sp, probe, q, delta,
-                               kw.get("overlap", False)))
+                               kw.get("overlap", False), kw))
             return self._orig(sp, probe, q, delta, **kw)
         SL.stacked_lookup = record
         return self
@@ -406,7 +555,7 @@ def replay(calls, device) -> dict:
     import torch
     from repro_torch.kernels import stacked_lookup as SL
     err = 0
-    for sp, probe, q, delta, _ in calls:
+    for sp, probe, q, delta, *_ in calls:
         # checked one launch at a time: its predecessor on the stream is the
         # plain version, so no overlap
         got = SL.stacked_lookup(sp, probe, q, delta, aux=True)
@@ -420,12 +569,12 @@ def replay(calls, device) -> dict:
     def served(overlap: bool = True):
         return lambda: [SL.stacked_lookup(sp, probe, q, delta,
                                           overlap=overlap and ov)
-                        for sp, probe, q, delta, ov in calls]
+                        for sp, probe, q, delta, ov, _ in calls]
     out = dict(max_abs_err=err, overlapped=sum(c[4] for c in calls),
                kernel_ms=device_ms(served(), device, reps=3),
                plain_ms=device_ms(lambda: [
                    SL.stacked_lookup_plain(sp, probe, q, delta)
-                   for sp, probe, q, delta, _ in calls], device, reps=1))
+                   for sp, probe, q, delta, *_ in calls], device, reps=1))
     if device.type != "cuda":
         return out
     planes = list({id(c[0]): c[0] for c in calls}.values())
@@ -703,6 +852,361 @@ def phase_merge(device, seed: int, n_keys: int, n_queries: int) -> dict:
     emit("merge", **out)
     if not ok or (device.type == "cuda" and launches <= 0):
         raise AssertionError(f"merge phase failed: {out}")
+    return out
+
+
+# ----------------------------------------------------------- serve_cache ----
+
+def zipf_queries(keys: np.ndarray, n: int, *, theta: float = 1.2,
+                 absent_frac: float = 0.1, seed: int = 7) -> np.ndarray:
+    """Skewed query stream: Zipf(theta) ranks over the present keys (hot
+    ranks mapped to random key positions so skew is independent of key
+    order) mixed with ~``absent_frac`` absent keys (midpoints between
+    consecutive distinct keys; the fraction is approximate when a midpoint
+    collides with a present key). Deterministic given (keys, n, seed). A
+    copy of ``benchmarks/serve_bench.py``'s ``zipf_queries``."""
+    rng = np.random.default_rng(seed)
+    ranks = (rng.zipf(theta, n) - 1) % keys.size
+    perm = rng.permutation(keys.size)
+    q = keys[perm[ranks]]
+    n_abs = int(n * absent_frac)
+    if n_abs:
+        pos = rng.integers(0, keys.size - 1, n_abs)
+        mid = keys[pos] + (keys[pos + 1] - keys[pos]) // np.uint64(2)
+        q[rng.permutation(n)[:n_abs]] = mid
+    return q
+
+
+def cache_service(device, seed: int, n_keys: int):
+    """A fused ``PlexService`` (eps 64, ``block`` 65,536, ``CACHE_SLOTS``
+    slots, ``QUEUE_MAX_DELAY_S``) over ``n_keys`` keys of the first SOSD
+    dataset whose shards all unify: ``osm``, then ``wiki``, then ``amzn``
+    at halved sizes (a ``reduced`` line for the cut). Returns (dataset,
+    keys, service)."""
+    import torch
+    from repro_torch.data import generate
+    from repro_torch.serving import PlexService
+    tries = [("osm", n_keys), ("wiki", n_keys)] + [
+        ("amzn", n_keys >> k) for k in range(1, 5)]
+    for name, n in tries:
+        t0 = time.perf_counter()
+        keys = generate(name, n, seed)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svc = PlexService(keys, eps=64, block=BLOCK, cache_slots=CACHE_SLOTS,
+                          max_delay_s=QUEUE_MAX_DELAY_S, device=device)
+        ctor_s = time.perf_counter() - t0
+        snap = svc.snapshot
+        emit("serve_cache_setup", dataset=name, keys=n, generate_s=gen_s,
+             build_s=snap.build_s, planes_upload_s=ctor_s - snap.build_s,
+             shards=snap.n_shards, layer_kinds=_kinds(snap),
+             path="fused" if svc.fused else "per-shard", block=BLOCK,
+             cache_slots=CACHE_SLOTS)
+        if svc.fused:
+            if n < n_keys:
+                emit("reduced", cache_service_keys=n, of=n_keys,
+                     dataset=name, why="no dataset unifies at full size")
+            return name, keys, svc
+        del svc, snap, keys
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    raise AssertionError("no dataset's shards unified for the cached "
+                         "service")
+
+
+def replay_cached(calls, device) -> dict:
+    """One served request's launches again, on the same device tensors
+    (after the phase's counts were read): as served with its cache (warm),
+    from an emptied cache (cold: the refill of the 16 MiB slot plane
+    included), without the cache, as served but with no launch
+    overlapping its predecessor, and counted (a counter plane of its
+    own)."""
+    import torch
+    from repro_torch.kernels import stacked_lookup as SL
+    cache = calls[0][5]["cache"]
+    sp = calls[0][0]
+    hits = torch.zeros(len(calls), dtype=torch.int32, device=device)
+    counters = torch.zeros(sp.n_shards + SL.N_PROBE_BUCKETS,
+                           dtype=torch.int64, device=device)
+
+    def run(mode: str, overlap=None):
+        def fn():
+            if mode == "cold":
+                cache.fill_(-1)
+            for j, (sp_, probe, q, delta, ov, _) in enumerate(calls):
+                o = ov if overlap is None else overlap and j > 0
+                if mode == "off":
+                    SL.stacked_lookup(sp_, probe, q, delta, overlap=o)
+                elif mode == "counted":
+                    SL.stacked_lookup(sp_, probe, q, delta, overlap=o,
+                                      counters=counters)
+                else:
+                    SL.stacked_lookup(sp_, probe, q, delta, overlap=o,
+                                      cache=cache, hits=hits[j:j + 1])
+        return fn
+    out = {}
+    for turn in (("warm", None), ("cold", None), ("off", None),
+                 ("counted", None), ("warm_no_overlap", False),
+                 ("warm_no_overlap", False), ("counted", None),
+                 ("off", None), ("cold", None),
+                 ("warm", None)):
+        name, ov = turn
+        mode = "warm" if name.startswith("warm") else name
+        out.setdefault(name, []).append(
+            device_ms(run(mode, ov), device, reps=3))
+    return {f"ms_{k}": float(np.mean(v)) for k, v in out.items()}
+
+
+def phase_serve_cache(device, seed: int, n_keys: int, n_queries: int):
+    """The cached, counted service on Zipf traffic (``CACHE_REQUESTS``
+    requests of ``n_queries``): two with the cache cold then warm, two
+    with ``METRICS`` armed (the counted dispatch), two with a live delta,
+    and the last two's queries again with the cache detached. Every rank
+    against searchsorted over the logical keys, one launch a micro-batch,
+    the live hotness against ``np.bincount(route(q))`` and the probe
+    histogram against the plain version's counter plane."""
+    import torch
+    from repro_torch.kernels import stacked_lookup as SL
+    from repro_torch.kernels.keys import to_biased
+    from repro_torch.obs.metrics import METRICS
+    name, keys, svc = cache_service(device, seed, n_keys)
+    st = svc._state.stacked
+    rng = np.random.default_rng(seed + 5)
+    q_all = zipf_queries(keys, (CACHE_REQUESTS - 2) * n_queries,
+                         theta=ZIPF_THETA, seed=seed)
+    qs = np.split(q_all, CACHE_REQUESTS - 2)
+    svc.warmup()
+    # request i: (what it exercises, its queries); the cache-off requests
+    # repeat the delta requests' queries
+    plan = [("cold", qs[0]), ("warm", qs[1]), ("counted", qs[2]),
+            ("counted", qs[3]), ("delta", qs[4]), ("delta", qs[5]),
+            ("cache_off", qs[4]), ("cache_off", qs[5])]
+    cache = st._cache
+    records, calls = [], []
+    logical = keys
+    # ---- the main path: counts at 0 just before, read just after
+    SL.launches = 0
+    batches0 = svc.stats.batches
+    for i, (what, q) in enumerate(plan):
+        METRICS.enabled = what == "counted"
+        if i == 4:
+            svc.insert(rng.integers(keys[0], keys[-1], 3_000,
+                                    dtype=np.uint64))
+            svc.delete(keys[rng.integers(0, keys.size, 1_000)])
+            check(svc.n_pending > 0 and svc.stats.merges == 0,
+                  "serve_cache: the delta must be live")
+            logical = svc.logical_keys()
+        # the same service with its impl's cache detached
+        st._cache = None if what == "cache_off" else cache
+        s0 = (svc.stats.cache_queries, svc.stats.cache_hits,
+              svc.stats.full_hit_batches, svc.stats.batches, SL.launches)
+        with recorded_launches() as rec:
+            t0 = time.perf_counter()
+            got = svc.lookup(q)
+            req_s = time.perf_counter() - t0
+        want = np.searchsorted(logical, q, "left")
+        check(np.array_equal(got, want),
+              f"serve_cache {what} request {i}: "
+              f"{int(np.count_nonzero(got != want))} of {q.size} ranks "
+              f"differ from searchsorted")
+        cq, ch, fh, b, ln = (a - a0 for a, a0 in zip(
+            (svc.stats.cache_queries, svc.stats.cache_hits,
+             svc.stats.full_hit_batches, svc.stats.batches, SL.launches),
+            s0))
+        records.append(dict(kind=what, index=i, queries=int(q.size),
+                            request_ms=req_s * 1e3,
+                            lookups_per_s=q.size / req_s,
+                            cache_queries=cq, cache_hits=ch,
+                            hit_rate=ch / cq if cq else None,
+                            full_hit_batches=fh, micro_batches=b,
+                            launches=ln))
+        calls.append(rec.calls)
+    METRICS.enabled = False
+    st._cache = cache
+    main_launches = SL.launches
+    main_batches = svc.stats.batches - batches0
+    # ---- end of the main path
+    if device.type == "cuda":
+        check(0 < main_launches == main_batches,
+              f"serve_cache: {main_launches} launches for {main_batches} "
+              f"micro-batches")
+    for r in records:
+        emit("serve_cache_request", **r)
+    counted = [q for what, q in plan if what == "counted"]
+    hot = np.bincount(svc.route(np.concatenate(counted)),
+                      minlength=svc.n_shards)
+    check(np.array_equal(svc.live_hotness(), hot),
+          "serve_cache: live_hotness() differs from bincount(route(q))")
+    plain = torch.zeros(st.planes.n_shards + SL.N_PROBE_BUCKETS,
+                        dtype=torch.int64, device=device)
+    for q in counted:
+        qd = torch.from_numpy(to_biased(q)).to(device)
+        for j in range(0, qd.numel(), BLOCK):
+            SL.stacked_lookup_plain(st.planes, st.probe, qd[j:j + BLOCK],
+                                    counters=plain)
+    plain_hist = plain[st.planes.n_shards:].cpu().numpy()
+    check(np.array_equal(svc.probe_trip_hist(), plain_hist),
+          "serve_cache: the probe histogram differs from the plain "
+          "version's")
+    # the served launches at the main path's shapes against the plain
+    # version (uncached), then the cached request replayed for times
+    first = replay(calls[0], device)
+    times = replay_cached(calls[1], device)
+    request_s = sum(r["request_ms"] for r in records) / 1e3
+    cached_recs = [r for r in records if r["cache_queries"]]
+    out = dict(dataset=name, keys=int(keys.size), requests=len(records),
+               launches=main_launches, micro_batches=main_batches,
+               theta=ZIPF_THETA, cache_slots=CACHE_SLOTS,
+               lookups_per_s=sum(r["queries"] for r in records) / request_s,
+               p99_request_ms=float(np.percentile(
+                   [r["request_ms"] for r in records], 99)),
+               hit_rate=svc.stats.cache_hit_rate,
+               warm_hit_rate=records[1]["hit_rate"],
+               full_hit_batches=svc.stats.full_hit_batches,
+               cached_requests=len(cached_recs),
+               live_hotness_ok=True, probe_hist_ok=True,
+               probe_hist=plain_hist.tolist(),
+               max_abs_err=first["max_abs_err"],
+               plain_ms_first_request=first["plain_ms"],
+               kernel_ms_first_request=first["kernel_ms"],
+               cached_overlap=all(c[4] for c in calls[1][1:]), **times)
+    emit("serve_cache", **out)
+    return out, svc, logical
+
+
+# ----------------------------------------------------------- serve_queue ----
+
+def phase_serve_queue(device, seed: int, svc, logical) -> dict:
+    """``QUEUE_TICKETS`` tickets of 1 to 2^16 queries submitted at once to
+    the cached service (``max_delay_s`` ``QUEUE_MAX_DELAY_S``), filled with
+    no further call: full blocks launch at submit, and the deadline timer
+    launches the remainder and drains everything. Each ticket against
+    searchsorted; nothing in flight after ``drain()``."""
+    from repro_torch.kernels import stacked_lookup as SL
+    rng = np.random.default_rng(seed + 6)
+    sizes = rng.integers(1, (1 << 16) + 1, QUEUE_TICKETS)
+    q_all = zipf_queries(logical, int(sizes.sum()), theta=ZIPF_THETA,
+                         seed=seed + 1)
+    qs = np.split(q_all, np.cumsum(sizes)[:-1])
+    svc.warmup()
+    # ---- the main path: counts at 0 just before, read just after
+    SL.launches = 0
+    b0 = svc.stats.batches
+    t_submit, tickets = [], []
+    t0 = time.perf_counter()
+    for q in qs:
+        t_submit.append(time.perf_counter())
+        tickets.append(svc.submit(q))
+    done = [None] * len(tickets)
+    deadline = time.perf_counter() + 10.0
+    while not all(done) and time.perf_counter() < deadline:
+        now = time.perf_counter()
+        for i, t in enumerate(tickets):
+            if done[i] is None and t._filled == t.n:
+                done[i] = now
+        time.sleep(1e-4)
+    by_timer = all(d is not None for d in done)
+    svc.drain()
+    end = max(d for d in done if d is not None) if any(done) else \
+        time.perf_counter()
+    launches, batches = SL.launches, svc.stats.batches - b0
+    # ---- end of the main path
+    check(by_timer, "serve_queue: the deadline timer left tickets unfilled")
+    for i, (t, q) in enumerate(zip(tickets, qs)):
+        got = t.result()
+        check(np.array_equal(got, np.searchsorted(logical, q, "left")),
+              f"serve_queue: ticket {i} of {q.size} differs from "
+              f"searchsorted")
+    check(svc.stats.inflight_batches == 0,
+          f"serve_queue: {svc.stats.inflight_batches} batches in flight "
+          f"after drain()")
+    if device.type == "cuda":
+        check(0 < launches == batches,
+              f"serve_queue: {launches} launches for {batches} batches")
+    lat = np.asarray([d - s_ for d, s_ in zip(done, t_submit)]) * 1e3
+    out = dict(tickets=len(tickets), queries=int(sizes.sum()),
+               min_ticket=int(sizes.min()), max_ticket=int(sizes.max()),
+               launches=launches, micro_batches=batches,
+               filled_by_timer=by_timer,
+               ticket_p50_ms=float(np.percentile(lat, 50)),
+               ticket_p99_ms=float(np.percentile(lat, 99)),
+               lookups_per_s=int(sizes.sum()) / (end - t0),
+               inflight_after_drain=svc.stats.inflight_batches,
+               matches_searchsorted=True)
+    emit("serve_queue", **out)
+    return out
+
+
+# ------------------------------------------------------ merge_background ----
+
+def phase_merge_background(device, seed: int, n_keys: int) -> dict:
+    """A background-merging service over ``n_keys`` ``amzn`` keys
+    (threshold 4,096): ``MERGE_ROUNDS`` rounds of ``MERGE_ROUND_OPS``
+    inserts and as many deletes, each round followed by a lookup of
+    ``MERGE_LOOKUPS`` queries against searchsorted over the logical keys
+    of that moment; then at least one merge, and ``close()`` joins the
+    worker. Every insert's and delete's latency beside the merges' time."""
+    from repro_torch.data import generate
+    from repro_torch.kernels import stacked_lookup as SL
+    from repro_torch.serving import PlexService
+    rng = np.random.default_rng(seed + 8)
+    keys = generate("amzn", n_keys, seed)
+    svc = PlexService(keys, eps=64, block=BLOCK, cache_slots=CACHE_SLOTS,
+                      merge_mode="background", merge_threshold=DELTA_CAP,
+                      device=device)
+    check(svc.fused, "merge_background: the amzn shards did not unify")
+    svc.warmup()
+    update_ms = []
+    # ---- the main path: counts at 0 just before, read just after
+    SL.launches = 0
+    b0 = svc.stats.batches
+    for r in range(MERGE_ROUNDS):
+        logical = svc.logical_keys()
+        ins = rng.integers(keys[0], keys[-1], MERGE_ROUND_OPS,
+                           dtype=np.uint64)
+        dels = logical[rng.integers(0, logical.size, MERGE_ROUND_OPS)]
+        for op, k in (("insert", ins), ("delete", dels)):
+            t0 = time.perf_counter()
+            getattr(svc, op)(k)
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+        logical = svc.logical_keys()
+        q = make_queries(logical, MERGE_LOOKUPS, rng)
+        got = svc.lookup(q)
+        check(np.array_equal(got, np.searchsorted(logical, q, "left")),
+              f"merge_background round {r}: "
+              f"{int(np.count_nonzero(got != np.searchsorted(logical, q)))}"
+              f" ranks differ from searchsorted")
+    t0 = time.perf_counter()
+    while svc.stats.merges < 1 and time.perf_counter() - t0 < 120:
+        time.sleep(0.01)
+    launches, batches = SL.launches, svc.stats.batches - b0
+    # ---- end of the main path
+    merges = svc.stats.merges
+    t0 = time.perf_counter()
+    svc.close()
+    close_s = time.perf_counter() - t0
+    worker = svc._merge_worker
+    alive = worker is not None and worker.is_alive()
+    check(merges >= 1, "merge_background: no merge published")
+    check(not alive, "merge_background: close() left the worker running")
+    if device.type == "cuda":
+        check(launches >= batches > 0,
+              f"merge_background: {launches} launches, {batches} batches")
+    logical = svc.logical_keys()
+    q = make_queries(logical, MERGE_LOOKUPS, rng)
+    check(np.array_equal(svc.lookup(q), np.searchsorted(logical, q, "left")),
+          "merge_background: lookups after close() differ")
+    out = dict(keys=n_keys, rounds=MERGE_ROUNDS, ops_per_round=2 *
+               MERGE_ROUND_OPS, merge_threshold=DELTA_CAP, merges=merges,
+               merge_failures=svc.stats.merge_failures,
+               merge_s_mean=svc.stats.merge_s / max(svc.stats.merges, 1),
+               max_update_ms=max(update_ms),
+               p50_update_ms=float(np.percentile(update_ms, 50)),
+               launches=launches, micro_batches=batches, close_s=close_s,
+               worker_joined=not alive, epoch=svc.epoch,
+               matches_searchsorted=True)
+    emit("merge_background", **out)
     return out
 
 
@@ -1628,6 +2132,13 @@ def main(argv=None) -> int:
     kern = phase_kernel(device, args.seed, KERNEL_KEYS, QUERIES)
     serve = phase_serve(device, args.seed, args.serve_keys, QUERIES)
     phase_merge(device, args.seed, KERNEL_KEYS, QUERIES)
+    cache, cache_svc, logical = phase_serve_cache(
+        device, args.seed, args.serve_keys, QUERIES)
+    queue = phase_serve_queue(device, args.seed, cache_svc, logical)
+    cache_svc.close()
+    del cache_svc, logical
+    gc.collect()
+    merge_bg = phase_merge_background(device, args.seed, KERNEL_KEYS)
     index = phase_index(device, args.seed, args.index_keys, QUERIES,
                         split_lib)
     # the lookup phases' planes are gone with their frames; hand their
@@ -1672,7 +2183,28 @@ def main(argv=None) -> int:
         "ms_spline_bisect": serve["ms_spline_bisect"],
         **{k: serve[k] for k in summary_keys},
         "kernel_phase": kern["levels"],
-        "past_the_end": kern["past_the_end"]}] + [{
+        "past_the_end": kern["past_the_end"],
+        # the cached and counted service (serve_cache), the queue and the
+        # background merge: their own paths' launches and times
+        "cache": {
+            "dataset": cache["dataset"], "keys": cache["keys"],
+            "slots": CACHE_SLOTS, "theta": ZIPF_THETA,
+            "launches": cache["launches"], "ms_cold": cache["ms_cold"],
+            "ms_warm": cache["ms_warm"], "ms_off": cache["ms_off"],
+            "ms_no_overlap": cache["ms_warm_no_overlap"],
+            "hit_rate": cache["hit_rate"],
+            "warm_hit_rate": cache["warm_hit_rate"],
+            "full_hit_batches": cache["full_hit_batches"],
+            "overlap": cache["cached_overlap"],
+            "tear_stress_ok": kern["tear_stress_ok"],
+            "warm_all_hit": kern["warm_all_hit"]},
+        "counted": {"ms": cache["ms_counted"], "ms_off": cache["ms_off"],
+                    "live_hotness_ok": cache["live_hotness_ok"],
+                    "probe_hist_ok": cache["probe_hist_ok"]},
+        "queue": {"launches": queue["launches"],
+                  "ticket_p99_ms": queue["ticket_p99_ms"]},
+        "merge_background": {"launches": merge_bg["launches"],
+                             "merges": merge_bg["merges"]}}] + [{
         "name": name, "route": "cuda", "source": sources[name],
         "replaces": replaces[name], "launches": k["launches"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -149,7 +149,8 @@ class Snapshot:
     """
 
     def __init__(self, keys: np.ndarray, eps: int, offsets: np.ndarray,
-                 shards: Sequence[PLEX], *, device=None, build_s: float = 0.0):
+                 shards: Sequence[PLEX], *, device=None, build_s: float = 0.0,
+                 epoch: int = 0):
         self.device = resolve_device(device)
         self.keys = keys
         self.eps = int(eps)
@@ -157,15 +158,16 @@ class Snapshot:
         self.shards = tuple(shards)
         self.shard_min = keys[offsets].copy()
         self.build_s = float(build_s)
+        self.epoch = int(epoch)   # the merge count that produced it
         freeze_arrays(self.keys, self.offsets, self.shard_min)
         for px in self.shards:
             px.freeze()
-        # ([shard,] device, block, probe) -> impl | None
+        # ([shard,] device, block, probe[, cache_slots]) -> impl | None
         self._stacked: dict = {}
 
     @classmethod
     def build(cls, keys: np.ndarray, eps: int, *, n_shards: int | None = None,
-              device=None, **build_kw) -> "Snapshot":
+              device=None, epoch: int = 0, **build_kw) -> "Snapshot":
         """Host-side sharded build (the paper's single-pass build per shard).
 
         The key array is adopted and frozen in place rather than copied (at
@@ -184,7 +186,7 @@ class Snapshot:
         plexes = [build_plex(keys[lo:hi], eps, **build_kw)
                   for lo, hi in zip(offsets, ends)]
         return cls(keys, eps, offsets, plexes, device=device,
-                   build_s=time.perf_counter() - t0)
+                   build_s=time.perf_counter() - t0, epoch=epoch)
 
     @property
     def n_shards(self) -> int:
@@ -201,18 +203,22 @@ class Snapshot:
                        0, self.n_shards - 1)
 
     def stacked_impl(self, *, device=None, block: int = 512,
-                     probe: str | None = None):
+                     probe: str | None = None, cache_slots: int = 0):
         """The fused shard-major stacked path of this snapshot
-        (``kernels.stacked_lookup.StackedTorchPlex``), or ``None`` when the
+        (``kernels.stacked_lookup.StackedTorchPlex``, with a hot-key cache
+        of ``cache_slots`` slots, a power of two or 0), or ``None`` when the
         shards' static parameters cannot be unified. Cached per
         configuration, ``None`` results included."""
-        from ..kernels.stacked_lookup import StackedTorchPlex
+        from ..kernels.stacked_lookup import StackedTorchPlex, \
+            check_cache_slots
+        check_cache_slots(cache_slots)
         dev = self.device if device is None else resolve_device(device)
-        cfg = (dev, int(block), probe)
+        cfg = (dev, int(block), probe, int(cache_slots))
         if cfg not in self._stacked:
             self._stacked[cfg] = StackedTorchPlex.from_plexes(
                 self.shards, self.offsets, device=dev, block=block,
-                probe=probe, summary_keys=self.n_keys)
+                probe=probe, cache_slots=cache_slots,
+                summary_keys=self.n_keys)
         return self._stacked[cfg]
 
     def shard_impl(self, s: int, *, device=None, block: int = 512,

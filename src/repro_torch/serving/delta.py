@@ -108,6 +108,21 @@ class DeltaBuffer:
         return int(self._state.keys.size)
 
     @property
+    def n_inserts(self) -> int:
+        return int(self._state.ins.size)
+
+    @property
+    def n_tombstones(self) -> int:
+        return int(self._state.del_keys.size)
+
+    @property
+    def net_keys(self) -> int:
+        """Logical key-count change vs the snapshot (inserts minus deleted
+        snapshot occurrences)."""
+        s = self._state
+        return int(s.ins.size - s.del_counts.sum())
+
+    @property
     def empty(self) -> bool:
         return self.n_entries == 0
 
@@ -159,6 +174,14 @@ class DeltaBuffer:
         return removed
 
     # -- merged-lookup views -------------------------------------------------
+    def entries(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(sorted delta keys, signed weights, exclusive weight prefix).
+
+        ``cum0`` has length ``n_entries + 1`` with a leading 0: the rank
+        adjustment for ``q`` is ``cum0[searchsorted(keys, q, "left")]``."""
+        s = self._state
+        return s.keys, s.weights, s.cum0
+
     def adjust(self, q: np.ndarray) -> np.ndarray:
         """Host-side merged-rank adjustment (the per-shard path): add this
         to an exact snapshot rank to get the logical merged rank."""
@@ -185,12 +208,36 @@ class DeltaBuffer:
         self._device = (s, device, planes)
         return planes
 
+    def pending_ops(self) -> list[tuple[str, np.ndarray]]:
+        """Replayable ``("delete" | "insert", keys)`` records equivalent to
+        this buffer's state. Deletes come first: replaying the tombstones
+        against the same (immutable) snapshot recreates the exact
+        multiplicities, and the inserts that follow are live again — the
+        insert-after-delete semantics round-trip by construction."""
+        s = self._state
+        ops: list[tuple[str, np.ndarray]] = []
+        if s.del_keys.size:
+            ops.append(("delete", s.del_keys.copy()))
+        if s.ins.size:
+            ops.append(("insert", s.ins.copy()))
+        return ops
+
     # -- merge support -------------------------------------------------------
-    def logical_keys(self) -> np.ndarray:
+    def capture(self) -> _DeltaState:
+        """The currently-published immutable state bundle: the background
+        merge's cut point. The merge worker captures it under the service
+        lock, then materialises and builds from it off-lock while the
+        writer keeps publishing newer states; pass it back to
+        ``logical_keys(state=...)``."""
+        return self._state
+
+    def logical_keys(self, state: _DeltaState | None = None) -> np.ndarray:
         """Materialise the logical merged key array (snapshot occurrences
         minus tombstoned runs, plus live inserts) — the input to the next
-        snapshot build. O(n) masking + one sort of the insert tail."""
-        s = self._state
+        snapshot build. O(n) masking + one sort of the insert tail.
+        ``state``: an earlier ``capture()``d bundle to materialise instead
+        of the live one."""
+        s = self._state if state is None else state
         snap = self._snap_keys
         if s.del_keys.size:
             edge = np.zeros(snap.size + 1, dtype=np.int64)

@@ -1,0 +1,212 @@
+"""``submit``/``drain`` in the port, held against the reference's.
+
+The scenarios of ``tests/test_stacked_serving.py`` (tickets and stats, the
+deadline flush, ``result()`` draining) and of ``tests/test_updatable.py``
+(updates drain the queue first, the timer thread fills tickets, ``drain``
+cancels the timer), plus admission control (``max_queue`` with reject and
+shed) and the per-shard path, where ``submit`` answers at once. The port
+launches only the lanes it has, so ``padded_lanes`` stays 0 where the
+reference pads a block.
+"""
+import threading
+import time
+
+import numpy as np
+import pytest
+
+from repro.data import generate
+from repro.serving import PlexService as RService
+from repro_torch.obs.metrics import METRICS
+from repro_torch.resilience.errors import QueueFullError
+from repro_torch.serving import PlexService
+
+from conftest import sorted_u64
+
+
+@pytest.fixture(autouse=True)
+def _reset_registry():
+    yield
+    METRICS.reset()
+    METRICS.disable()
+
+
+def _svc(keys, **kw):
+    kw.setdefault("eps", 16)
+    kw.setdefault("block", 512)
+    return PlexService(keys.copy(), device="cpu", **kw)
+
+
+def test_submit_drain_tickets_and_stats(rng):
+    keys = sorted_u64(rng, 30_000)
+    svc = _svc(keys, n_shards=3, max_delay_s=60.0)
+    ref = RService(keys.copy(), eps=16, n_shards=3, block=512,
+                   max_delay_s=60.0, backend="jnp")
+    assert svc.fused
+    svc.warmup()
+    qs = [keys[:300], keys[5_000:5_900], keys[-100:]]
+    tickets = [svc.submit(q) for q in qs]
+    rtickets = [ref.submit(q) for q in qs]
+    # 1,300 queued queries: two full blocks launched, 276 still queued
+    assert svc.stats.inflight_batches == ref.stats.inflight_batches == 2
+    assert not tickets[-1].ready
+    svc.drain()
+    ref.drain()
+    assert svc.stats.inflight_batches == 0
+    assert svc.stats.drained_batches == 3
+    assert svc.stats.batches == 3 and svc.stats.queries == 1_300
+    assert svc.stats.padded_lanes == 0 < ref.stats.padded_lanes
+    for t, rt, q in zip(tickets, rtickets, qs):
+        assert t.ready
+        assert np.array_equal(t.result(), np.searchsorted(keys, q, "left"))
+        assert np.array_equal(t.result(), rt.result())
+
+
+def test_submit_deadline_flush(rng):
+    keys = sorted_u64(rng, 10_000)
+    svc = _svc(keys, max_delay_s=0.0)
+    svc.submit(keys[:100])
+    svc.submit(keys[100:200])      # deadline 0: the remainder launches
+    assert svc.stats.inflight_batches >= 1
+    svc.drain()
+    assert svc.stats.inflight_batches == 0
+
+
+def test_ticket_result_triggers_drain(rng):
+    keys = sorted_u64(rng, 10_000)
+    svc = _svc(keys, max_delay_s=60.0)
+    t = svc.submit(keys[:100])
+    assert not t.ready
+    assert np.array_equal(t.result(),
+                          np.searchsorted(keys, keys[:100], "left"))
+    assert svc.submit(np.zeros(0, np.uint64)).result().size == 0
+
+
+def test_updates_drain_queue_first(rng):
+    """Queued lookups observe the state they were submitted against: an
+    insert linearises after every earlier ticket."""
+    keys = np.unique(rng.integers(1, 1 << 62, 10_000, dtype=np.uint64))
+    svc = _svc(keys, max_delay_s=60.0, merge_threshold=0)
+    svc.warmup()
+    t = svc.submit(keys[:100])
+    assert not t.ready
+    svc.insert(keys[:1] - np.uint64(1))
+    assert t.ready                          # drained by the update
+    assert np.array_equal(t.result(), np.arange(100))
+    t2 = svc.submit(keys[:100])
+    svc.delete(keys[:1])
+    assert np.array_equal(t2.result(), np.arange(1, 101))
+
+
+def test_background_deadline_flush_fills_tickets(rng):
+    keys = np.unique(rng.integers(0, 1 << 62, 10_000, dtype=np.uint64))
+    svc = _svc(keys, max_delay_s=0.05)
+    svc.warmup()
+    t = svc.submit(keys[:100])
+    assert not t.ready
+    deadline = time.monotonic() + 5.0
+    # filled by the timer thread's flush and drain, no caller action
+    while t._filled < t.n and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert t.ready, "the deadline timer did not flush the queued remainder"
+    assert t._filled == 100
+    assert np.array_equal(t.result(), np.arange(100))
+    assert svc.stats.inflight_batches == 0
+
+
+def test_drain_cancels_timer(rng):
+    keys = np.unique(rng.integers(0, 1 << 62, 5_000, dtype=np.uint64))
+    svc = _svc(keys, max_delay_s=30.0)
+    t = svc.submit(keys[:64])
+    assert svc._timer is not None
+    svc.drain()
+    assert svc._timer is None
+    assert t.ready
+
+
+def test_drain_timeout_on_a_held_lock(rng):
+    keys = sorted_u64(rng, 5_000)
+    svc = _svc(keys, max_delay_s=30.0)
+    t = svc.submit(keys[:10])
+    held, release = threading.Event(), threading.Event()
+
+    def hold():
+        with svc._lock:
+            held.set()
+            release.wait(10)
+    th = threading.Thread(target=hold)
+    th.start()
+    try:
+        assert held.wait(10)
+        with pytest.raises(TimeoutError, match="lock"):
+            svc.drain(timeout=0.05)
+        with pytest.raises(TimeoutError):
+            t.result(timeout=0.05)
+    finally:
+        release.set()
+        th.join(10)
+    assert not th.is_alive()
+    assert np.array_equal(t.result(), np.searchsorted(keys, keys[:10]))
+
+
+@pytest.mark.parametrize("overflow", ["reject", "shed"])
+def test_max_queue_admission(rng, overflow):
+    keys = sorted_u64(rng, 10_000)
+    svc = _svc(keys, max_delay_s=60.0, max_queue=600, overflow=overflow)
+    t1 = svc.submit(keys[:400])              # queued, under the bound
+    if overflow == "reject":
+        with pytest.raises(QueueFullError, match="queue"):
+            svc.submit(keys[:300])
+    else:
+        shed = svc.submit(keys[:300])
+        assert shed.ready
+        with pytest.raises(QueueFullError):
+            shed.result()
+    assert svc.stats.shed_queries == 300
+    t2 = svc.submit(keys[400:600])           # exactly at the bound
+    assert np.array_equal(t1.result(), np.arange(400))
+    assert np.array_equal(t2.result(), np.arange(400, 600))
+    with pytest.raises(ValueError, match="overflow"):
+        _svc(keys, overflow="drop")
+    with pytest.raises(ValueError, match="max_queue"):
+        _svc(keys, max_queue=-1)
+
+
+def test_per_shard_path_answers_submit_at_once():
+    keys = generate("face", 100_000, 0)
+    svc = _svc(keys, eps=32, n_shards=2, max_delay_s=60.0)
+    assert not svc.fused
+    q = keys[np.random.default_rng(1).integers(0, keys.size, 700)]
+    t = svc.submit(q)
+    assert t.ready and t._filled == q.size
+    assert svc._q_len == 0 and svc._timer is None
+    assert np.array_equal(t.result(), np.searchsorted(keys, q, "left"))
+
+
+def test_many_callers_share_micro_batches(rng):
+    """Tickets of mixed sizes from several threads: every answer exact,
+    every block but the last full (shared across callers), nothing left in
+    flight."""
+    keys = generate("amzn", 40_000, 0)
+    svc = _svc(keys, n_shards=2, max_delay_s=60.0, cache_slots=1 << 12)
+    assert svc.fused
+    svc.warmup()
+    sizes = np.random.default_rng(2).integers(1, 1_500, 48)
+    qs = [keys[np.random.default_rng(i).integers(0, keys.size, n)]
+          for i, n in enumerate(sizes)]
+    tickets: list = [None] * len(qs)
+
+    def caller(lo):
+        for i in range(lo, len(qs), 4):
+            tickets[i] = svc.submit(qs[i])
+    threads = [threading.Thread(target=caller, args=(k,)) for k in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(30)
+    assert not any(th.is_alive() for th in threads)
+    svc.drain()
+    for t, q in zip(tickets, qs):
+        assert np.array_equal(t.result(), np.searchsorted(keys, q, "left"))
+    assert svc.stats.inflight_batches == 0
+    assert svc.stats.batches == -(-int(sizes.sum()) // 512)
+    assert svc.stats.queries == svc.stats.cache_queries == int(sizes.sum())
