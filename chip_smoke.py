@@ -25,6 +25,17 @@ card, then drives the port's three paths:
   through ``submit`` filled by the deadline timer (``serve_queue``); a
   background-merging service taking rounds of inserts and deletes while
   it answers lookups (``merge_background``);
+* durable, fault-tolerant serving: that cached service saved with fsync,
+  updated through its WAL, dropped with a torn WAL record, reopened by
+  ``PlexService.open`` and serving through K1, then a durable merge
+  (``durable``); a 2M-key service that asked for the fallback chain, with
+  ``backend.dispatch`` failing for ``cuda`` (``fail_n(3)``, ``always()``,
+  ``intermittent(0.3)``), answered through the chain by the ``torch``
+  backend on the card, the breaker's states on an injected clock, K1 back
+  after the faults clear; a service left at its default fallback raising
+  rather than serving when K1's dispatch fails or its library does not
+  load; ``open`` falling back to the last known good generation and a
+  merge whose build fails (``chaos``);
 * the per-index path (K2/K3 fused with K4 in one launch): ``LearnedIndex.
   lookup`` over 2^24 keys of each SOSD dataset (the most one index's float32
   rank plane holds), K2/K3 alone, K4 alone and the fused launch each held
@@ -45,7 +56,8 @@ card, then drives the port's three paths:
   then the ``ServeEngine`` over ten requests whose position groups split
   (``lm_serve``).
 
-Each phase prints one JSON line; the ``kernels`` line carries each kernel's
+Each phase prints one JSON line, and ``phase_seconds`` each phase's host
+wall time; the ``kernels`` line carries each kernel's
 launches on its path, its time, its plain version's time, its bound and a
 library yardstick; the last line is
 
@@ -90,6 +102,17 @@ QUEUE_MAX_DELAY_S = 0.002
 MERGE_ROUNDS = 16
 MERGE_ROUND_OPS = 1024
 MERGE_LOOKUPS = 1 << 16
+DURABLE_INSERTS = 2048            # through the WAL, DURABLE_RECORD a record
+DURABLE_DELETES = 1024            # one delete record every other insert
+DURABLE_RECORD = 32
+DURABLE_REQUESTS = 4
+# single-key fsync'd appends timed on a log of their own: the service's 96
+# records are too few for a p99
+WAL_TIMED_APPENDS = 4096
+# cut from merge_background's 16M: the chain's behaviour does not depend on
+# the key count, and the smaller build and merges keep the phase short
+CHAOS_KEYS = 2_000_000
+CHAOS_REQUESTS = 4
 # HBM rate of one H100 SXM (NVIDIA's data sheet, at 700 W): the bound's
 # denominator; the measured copy rate is printed beside it
 PEAK_HBM_TBS = 3.35
@@ -774,6 +797,7 @@ def phase_serve(device, seed: int, n_keys: int, n_queries: int) -> dict:
                                             for r in records]))
                           for k in ("1", "2")},
             probe_200m=probe_big)
+    check_healthy(svc, "serve")
     emit("serve", **out)
     emit("yardstick", library="torch.searchsorted", library_ms=out[
         "library_ms"], queries=n_queries, keys=n_keys)
@@ -852,6 +876,7 @@ def phase_merge(device, seed: int, n_keys: int, n_queries: int) -> dict:
     emit("merge", **out)
     if not ok or (device.type == "cuda" and launches <= 0):
         raise AssertionError(f"merge phase failed: {out}")
+    check_healthy(svc, "merge")
     return out
 
 
@@ -1206,8 +1231,495 @@ def phase_merge_background(device, seed: int, n_keys: int) -> dict:
                launches=launches, micro_batches=batches, close_s=close_s,
                worker_joined=not alive, epoch=svc.epoch,
                matches_searchsorted=True)
+    check_healthy(svc, "merge_background")
     emit("merge_background", **out)
     return out
+
+
+# ------------------------------------------------------------ resilience ----
+
+def check_healthy(svc, phase: str) -> None:
+    """Outside the chaos phase a service must show no fallback, no open
+    breaker and no error: a chain that quietly served through ``torch`` or
+    ``numpy`` would look like a healthy one."""
+    h = svc.health()
+    bad = {n: b["state"] for n, b in h["breakers"].items()
+           if b["state"] != "closed"}
+    check(h["fallback_lookups"] == 0 and h["backend_failures"] == 0
+          and not bad and not h["last_errors"],
+          f"{phase}: fallback {h['fallback_lookups']}, failures "
+          f"{h['backend_failures']}, breakers {bad}, errors "
+          f"{h['last_errors'][:3]}")
+
+
+class timed_calls:
+    """Within the block, the named attributes (functions or methods) are
+    wrapped to add their wall time (after a device sync) to ``seconds``
+    under a label: the parts of one real ``PlexService.open``."""
+
+    def __init__(self, device, *targets):
+        self.device, self.targets, self.seconds = device, targets, {}
+
+    def _sync(self):
+        import torch
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def __enter__(self):
+        self._orig = []
+        for owner, name, label in self.targets:
+            orig = getattr(owner, name)
+            self._orig.append((owner, name, orig))
+            self.seconds[label] = 0.0
+
+            def wrapped(*a, _orig=orig, _label=label, **kw):
+                self._sync()
+                t0 = time.perf_counter()
+                out = _orig(*a, **kw)
+                self._sync()
+                self.seconds[_label] += time.perf_counter() - t0
+                return out
+            setattr(owner, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._orig):
+            setattr(owner, name, orig)
+
+
+def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
+    """Restart from disk and serve through K1: the fused, cached service of
+    ``serve_cache`` is saved to a directory under ``tempfile`` (fsync on),
+    takes ``DURABLE_INSERTS`` inserts and ``DURABLE_DELETES`` deletes through
+    the WAL (each append fsync'd and timed; ``WAL_TIMED_APPENDS`` single-key
+    appends on a log of their own give the latency's p50 and p99), answers
+    ``DURABLE_REQUESTS``
+    Zipf requests, and is dropped without ``close`` with a torn record
+    appended to its WAL. ``PlexService.open`` then serves the same requests
+    through K1 (every rank equal to searchsorted over the logical keys and
+    to the live service's answers), a durable merge commits generation 1
+    and collects generation 0. ``load_s`` is split into map, biased planes,
+    key summary, upload and WAL replay by timing those calls inside the
+    open. Where the disk cannot hold two generations of the service, a
+    smaller ``osm`` service takes its place (a ``reduced`` line)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import LearnedIndex
+    from repro_torch.kernels import planes as TPL
+    from repro_torch.kernels import segment_lookup as SEG
+    from repro_torch.kernels import stacked_lookup as SL
+    from repro_torch.obs.metrics import METRICS
+    from repro_torch.persist import format as PF
+    from repro_torch.persist import (SNAPSHOT_FILE, WriteAheadLog, gen_name,
+                                     read_manifest, validate_snapshot,
+                                     wal_name)
+    from repro_torch.persist.wal import OP_DELETE, OP_INSERT
+    from repro_torch.serving import PlexService
+    from repro_torch.serving import plex_service as PS
+    root = pathlib.Path(tempfile.mkdtemp(prefix="plex-durable-"))
+    try:
+        free = shutil.disk_usage(root).free
+        # a generation holds the 8-byte keys and a few percent more
+        need = int(2 * 1.1 * 8 * svc.snapshot.n_keys)
+        build_s = svc.build_s
+        if free < need:
+            n = int(free / (2 * 1.1 * 8) * 0.8)
+            emit("reduced", durable_keys=n, of=svc.snapshot.n_keys,
+                 free_disk_bytes=free, why="the disk cannot hold two "
+                 "generations")
+            _, keys, svc = cache_service(device, seed, n)
+            build_s = svc.build_s
+        rng = np.random.default_rng(seed + 9)
+        # explicit merges only: the phase's own merge is step 6
+        svc.merge_threshold = 0
+        t0 = time.perf_counter()
+        svc.save(root, fsync=True)
+        save_s = time.perf_counter() - t0
+        snap_bytes = (root / gen_name(0) / SNAPSHOT_FILE).stat().st_size
+        METRICS.reset()
+        METRICS.enable()
+        METRICS.counted_dispatch = False
+        for i in range(DURABLE_INSERTS // DURABLE_RECORD):
+            svc.insert(rng.integers(keys[0], keys[-1], DURABLE_RECORD,
+                                    dtype=np.uint64))
+            if i % 2:
+                svc.delete(keys[rng.integers(0, keys.size,
+                                             DURABLE_RECORD)])
+        appends = METRICS.histogram("wal.append_us").samples()
+        METRICS.reset()
+        METRICS.enable()
+        timing = root / "append-timing.log"
+        wal = WriteAheadLog.create(timing, fsync=True)
+        for i, k in enumerate(rng.integers(keys[0], keys[-1],
+                                           WAL_TIMED_APPENDS,
+                                           dtype=np.uint64)):
+            wal.append(OP_DELETE if i % 3 == 2 else OP_INSERT, k[None])
+        wal.close()
+        timing.unlink()
+        single = METRICS.histogram("wal.append_us").samples()
+        METRICS.disable()
+        METRICS.counted_dispatch = True
+        METRICS.reset()
+        check(svc.n_pending > 0 and svc.generation == 0,
+              "durable: the delta must be live in generation 0")
+        logical = svc.logical_keys()
+        qs = np.split(zipf_queries(logical, DURABLE_REQUESTS * n_queries,
+                                   theta=ZIPF_THETA, seed=seed + 3),
+                      DURABLE_REQUESTS)
+        live = [svc.lookup(q) for q in qs]
+        check_healthy(svc, "durable (before the drop)")
+        wal_path = root / wal_name(0)
+        wal_bytes = wal_path.stat().st_size
+        # dropped without close: a torn record (a header and half its
+        # payload) lands after the last good one
+        with open(wal_path, "ab") as f:
+            f.write(b"\x01\x02\x03\x04\x40\x00\x00\x00\x01" + b"\x55" * 32)
+        del svc
+        gc.collect()
+        # ---- the main path: counts at 0 just before, read just after
+        SL.launches = 0
+        with timed_calls(device,
+                         (PS, "load_snapshot", "map"),
+                         (PS.PlexService, "__init__", "planes"),
+                         (PF, "_host_planes_from_mapped", "biased_planes"),
+                         (TPL, "build_summary", "summary"),
+                         (WriteAheadLog, "replay", "wal_read")) as tc:
+            t0 = time.perf_counter()
+            back = PlexService.open(root, block=BLOCK,
+                                    cache_slots=CACHE_SLOTS,
+                                    max_delay_s=QUEUE_MAX_DELAY_S,
+                                    merge_threshold=0, fsync=True,
+                                    device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            open_s = time.perf_counter() - t0
+        check(wal_path.stat().st_size == wal_bytes,
+              "durable: the torn WAL tail was not truncated")
+        check(np.array_equal(back.logical_keys(), logical),
+              "durable: the reopened logical keys differ")
+        b0 = back.stats.batches
+        records, calls = [], []
+        for i, (q, want_live) in enumerate(zip(qs, live)):
+            with recorded_launches() as rec:
+                t0 = time.perf_counter()
+                got = back.lookup(q)
+                req_s = time.perf_counter() - t0
+            calls.append(rec.calls)
+            want = np.searchsorted(logical, q, "left")
+            check(np.array_equal(got, want) and np.array_equal(got,
+                                                               want_live),
+                  f"durable request {i}: "
+                  f"{int(np.count_nonzero(got != want))} ranks differ from "
+                  f"searchsorted, {int(np.count_nonzero(got != want_live))}"
+                  " from the live service's")
+            records.append(req_s * 1e3)
+        launches, batches = SL.launches, back.stats.batches - b0
+        # ---- end of the main path
+        if device.type == "cuda":
+            check(0 < launches == batches,
+                  f"durable: {launches} K1 launches for {batches} batches")
+        check_healthy(back, "durable (reopened)")
+        first = replay(calls[0], device)
+        # one shard of the reopened snapshot through the per-index path
+        px = back.snapshot.shards[0]
+        idx = LearnedIndex(plex=px, device=device)
+        qi = px.keys[rng.integers(0, px.keys.size, n_queries)]
+        SEG.fused_launches = 0
+        got = idx.lookup(qi, backend="cuda")
+        index_launches = SEG.fused_launches
+        check(np.array_equal(got, np.searchsorted(px.keys, qi, "left")),
+              "durable: LearnedIndex on a reopened shard differs from "
+              "searchsorted")
+        if device.type == "cuda":
+            check(index_launches > 0, "durable: no fused K2/K3 + K4 launch "
+                  "on the reopened shard")
+        del idx
+        t0 = time.perf_counter()
+        merged = back.merge()
+        merge_s = time.perf_counter() - t0
+        man = read_manifest(root)
+        names = sorted(p.name for p in root.iterdir())
+        check(merged and back.generation == 1 and man.generation == 1
+              and gen_name(0) not in names and wal_name(0) not in names
+              and validate_snapshot(root / gen_name(1)),
+              f"durable: after the merge {names}, manifest {man}")
+        q = make_queries(back.logical_keys(), n_queries, rng)
+        check(np.array_equal(back.lookup(q),
+                             np.searchsorted(back.logical_keys(), q, "left")),
+              "durable: lookups after the merge differ")
+        check_healthy(back, "durable (after the merge)")
+        back.close()
+        sec = tc.seconds
+        upload_s = sec["planes"] - sec["biased_planes"] - sec["summary"]
+        req = np.asarray(records)
+        out = dict(keys=int(len(keys)), build_s=build_s, save_s=save_s,
+                   snapshot_bytes=snap_bytes, free_disk_bytes=free,
+                   load_s=back.load_s, open_s=open_s,
+                   load_split=dict(map_s=sec["map"],
+                                   biased_planes_s=sec["biased_planes"],
+                                   summary_s=sec["summary"],
+                                   upload_s=upload_s,
+                                   wal_replay_s=back.load_s - sec["map"]
+                                   - sec["planes"],
+                                   wal_read_s=sec["wal_read"]),
+                   build_over_load=build_s / back.load_s,
+                   wal_appends=int(single.size),
+                   wal_append_p50_us=float(np.percentile(single, 50)),
+                   wal_append_p99_us=float(np.percentile(single, 99)),
+                   service_wal_appends=int(appends.size),
+                   service_wal_append_p50_us=float(
+                       np.percentile(appends, 50)),
+                   service_wal_append_p99_us=float(
+                       np.percentile(appends, 99)),
+                   wal_bytes=wal_bytes, torn_tail_truncated=True,
+                   first_request_ms=float(req[0]),
+                   lookups_per_s=DURABLE_REQUESTS * n_queries
+                   / (req.sum() / 1e3),
+                   p99_request_ms=float(np.percentile(req, 99)),
+                   launches=launches, micro_batches=batches,
+                   kernel_ms_first_request=first["kernel_ms"],
+                   max_abs_err=first["max_abs_err"],
+                   index_launches=index_launches, merge_s=merge_s,
+                   generation=1, generation0_collected=True,
+                   matches_live=True, matches_searchsorted=True,
+                   reference_validate="tests/test_torch_persist.py "
+                   "(repro.persist.format.validate_snapshot, CPU)")
+        emit("durable", **out)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class FakeClock:
+    """The breakers' injected clock: time moves only when told."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def phase_chaos(device, seed: int, n_keys: int, n_queries: int) -> dict:
+    """Degraded, never wrong: a service over ``n_keys`` ``amzn`` keys that
+    asked for the fallback chain (``fallback="auto"``; on the card the
+    default is none), with ``backend.dispatch`` armed for ``cuda`` by
+    ``fail_n(3)``, ``always()`` and ``intermittent(0.3, seed)`` in turn,
+    ``CHAOS_REQUESTS`` requests each, then the fault cleared and the
+    breaker's cooldown passed on its injected clock. Every rank equals
+    searchsorted; the breaker's states (closed -> open -> half-open ->
+    closed) and the fallback counts come from ``health()``; the ``torch``
+    backend's plain pipeline runs on the card and is timed against K1;
+    after ``FAULTS.reset()`` K1 launches resume. On the card a service left
+    at its default fallback raises, with no plain call and no fallback,
+    when K1's dispatch fails and when its library does not load. Then
+    ``persist.snapshot.map`` armed on the newest generation (``open`` serves
+    the last known good one) and ``serving.merge.build`` armed on a merge
+    (the old state answers bit for bit, the backoff is armed)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.data import generate
+    from repro_torch.kernels import stacked_lookup as SL
+    from repro_torch.kernels.keys import to_biased
+    from repro_torch.persist import gen_name
+    from repro_torch.resilience import (FAULTS, MergeFailedError, always,
+                                        fail_n, fail_once, intermittent)
+    from repro_torch.resilience.faults import (POINT_BACKEND_DISPATCH,
+                                               POINT_MERGE_BUILD,
+                                               POINT_SNAPSHOT_MAP)
+    from repro_torch.serving import PlexService
+    rng = np.random.default_rng(seed + 10)
+    keys = generate("amzn", n_keys, seed)
+    clock = FakeClock()
+    svc = PlexService(keys, eps=64, block=BLOCK, merge_threshold=0,
+                      fallback="auto", breaker_threshold=3,
+                      breaker_cooldown_s=30.0, breaker_clock=clock,
+                      merge_backoff_s=5.0, keep_generations=2, device=device)
+    check(svc.fused, "chaos: the amzn shards did not unify")
+    svc.warmup()
+    svc.warmup("torch")
+    qs = [make_queries(keys, n_queries, rng) for _ in range(CHAOS_REQUESTS)]
+    wants = [np.searchsorted(keys, q, "left") for q in qs]
+
+    def serve(tag):
+        for i, (q, want) in enumerate(zip(qs, wants)):
+            got = svc.lookup(q)
+            check(np.array_equal(got, want),
+                  f"chaos {tag} request {i}: "
+                  f"{int(np.count_nonzero(got != want))} ranks differ")
+
+    def state():
+        return svc.health()["breakers"]["cuda"]["state"]
+    SL.launches = 0
+    serve("before")
+    k1_before = SL.launches
+    if device.type == "cuda":
+        check(k1_before > 0, "chaos: no K1 launch before the faults")
+    scenarios = {"fail_n_3": lambda: fail_n(3, backend="cuda"),
+                 "always": lambda: always(backend="cuda"),
+                 "intermittent_0.3": lambda: intermittent(0.3, seed,
+                                                          backend="cuda")}
+    rows = {}
+    for name, make in scenarios.items():
+        f0, b0 = svc.stats.fallback_lookups, svc.stats.backend_failures
+        p0, t0 = SL.plain_calls, FAULTS.trips(POINT_BACKEND_DISPATCH)
+        states = [state()]
+        with FAULTS.injected(POINT_BACKEND_DISPATCH, make()):
+            for i, (q, want) in enumerate(zip(qs, wants)):
+                got = svc.lookup(q)
+                check(np.array_equal(got, want),
+                      f"chaos {name} request {i}: "
+                      f"{int(np.count_nonzero(got != want))} ranks differ")
+                states.append(state())
+            clock.t += 31.0
+            states.append(state())
+            serve(name + " probe")           # the half-open probe, armed
+            states.append(state())
+        clock.t += 31.0
+        states.append(state())
+        serve(name + " cleared")
+        states.append(state())
+        check(states[-1] == "closed", f"chaos {name}: the breaker did not "
+              f"close after the fault was cleared: {states}")
+        rows[name] = dict(
+            trips=FAULTS.trips(POINT_BACKEND_DISPATCH) - t0,
+            fallback_lookups=svc.stats.fallback_lookups - f0,
+            backend_failures=svc.stats.backend_failures - b0,
+            torch_plain_calls=SL.plain_calls - p0, breaker_states=states)
+    seen = {s for r in rows.values() for s in r["breaker_states"]}
+    check({"closed", "open", "half_open"} <= seen,
+          f"chaos: breaker states seen {sorted(seen)}")
+    check(all(r["fallback_lookups"] > 0 for r in rows.values()),
+          "chaos: a scenario served no fallback")
+    st_torch = svc.snapshot.stacked_impl("torch", block=BLOCK)
+    check(st_torch.plain and st_torch.planes.device == svc.device
+          and st_torch.planes is svc._state.stacked.planes,
+          "chaos: the torch backend does not run on K1's planes on the card")
+    FAULTS.reset()
+    # ---- K1 after the faults: counts at 0 just before, read just after
+    SL.launches = 0
+    b0 = svc.stats.batches
+    serve("after reset")
+    k1_after, batches = SL.launches, svc.stats.batches - b0
+    if device.type == "cuda":
+        check(0 < k1_after == batches,
+              f"chaos: {k1_after} K1 launches after reset for {batches} "
+              "micro-batches")
+    # the torch backend against K1: one request's dispatch on the card
+    qd = torch.from_numpy(to_biased(qs[0])).to(device)
+    st = svc._state.stacked
+    k1_ms = device_ms(lambda: st.dispatch(qd), device, reps=3)
+    torch_ms = device_ms(lambda: st_torch.dispatch(qd), device, reps=1)
+    host = {}
+    for be in ("cuda", "torch", "cuda", "torch"):
+        t0 = time.perf_counter()
+        svc.lookup(qs[0], backend=be)
+        host.setdefault(be, []).append((time.perf_counter() - t0) * 1e3)
+    strict = default_fallback_raises(device, keys, qs[0]) \
+        if device.type == "cuda" else None
+    # last known good: two generations on disk, the newest unmappable
+    root = pathlib.Path(tempfile.mkdtemp(prefix="plex-chaos-"))
+    try:
+        svc.save(root, fsync=False)
+        svc.insert(rng.integers(keys[0], keys[-1], 1_000, dtype=np.uint64))
+        check(svc.merge() and svc.generation == 1,
+              "chaos: the merge to generation 1 failed")
+        logical = svc.logical_keys()
+        with FAULTS.injected(POINT_SNAPSHOT_MAP,
+                             fail_once(gen_dir=gen_name(1))):
+            back = PlexService.open(root, block=BLOCK, fsync=False,
+                                    device=device)
+        check(back.generation == 0
+              and np.array_equal(back.logical_keys(), logical)
+              and (root / "quarantine" / gen_name(1)).is_dir(),
+              "chaos: open did not serve the last known good generation")
+        q = make_queries(logical, n_queries, rng)
+        check(np.array_equal(back.lookup(q),
+                             np.searchsorted(logical, q, "left")),
+              "chaos: the last known good generation answers wrong")
+        back.close()
+        del back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # a failed merge: the old state answers bit for bit, the backoff armed
+    svc.insert(rng.integers(keys[0], keys[-1], 500, dtype=np.uint64))
+    state0, before = svc._state, svc.lookup(qs[0])
+    with FAULTS.injected(POINT_MERGE_BUILD, fail_once()):
+        try:
+            svc.merge()
+            failed = False
+        except MergeFailedError:
+            failed = True
+    h = svc.health()
+    check(failed and svc._state is state0
+          and np.array_equal(svc.lookup(qs[0]), before)
+          and h["merge_failures"] == 1 and h["merge_retry_in_s"] > 0,
+          f"chaos: merge.build: failed={failed}, health {h['merge_failures']}"
+          f" failures, retry in {h['merge_retry_in_s']} s")
+    svc.close()
+    out = dict(keys=n_keys, requests=CHAOS_REQUESTS, queries=n_queries,
+               scenarios=rows, k1_launches_before=k1_before,
+               k1_launches_after=k1_after, micro_batches_after=batches,
+               fallback_lookups=svc.stats.fallback_lookups,
+               torch_dispatch_ms=torch_ms, k1_dispatch_ms=k1_ms,
+               torch_over_k1=torch_ms / k1_ms,
+               host_request_ms={k: float(np.mean(v)) for k, v in
+                                host.items()},
+               last_known_good=True, merge_build_contained=True,
+               merge_retry_in_s=h["merge_retry_in_s"], default_chain=strict)
+    emit("chaos", **out)
+    return out
+
+
+def default_fallback_raises(device, keys, q) -> list:
+    """A service over ``keys`` left at its default fallback on the card
+    serves nothing in K1's place: with ``backend.dispatch`` failing for
+    ``cuda``, and with K1's library failing to load, ``lookup`` raises
+    ``BackendUnavailableError``, no plain call runs, no fallback is counted
+    and K1 makes no launch; once both are cleared, K1 answers. Returns the
+    service's chain."""
+    from repro_torch.kernels import stacked_lookup as SL
+    from repro_torch.resilience import (FAULTS, BackendUnavailableError,
+                                        always)
+    from repro_torch.resilience.faults import POINT_BACKEND_DISPATCH
+    from repro_torch.serving import PlexService
+    strict = PlexService(keys, eps=64, block=BLOCK, device=device)
+    strict.warmup()
+    want = np.searchsorted(keys, q, "left")
+    p0, l0 = SL.plain_calls, SL.launches
+    raised = []
+
+    def no_library(name):
+        raise OSError(f"{name}: the kernel library failed to build")
+    with FAULTS.injected(POINT_BACKEND_DISPATCH, always(backend="cuda")):
+        try:
+            strict.lookup(q)
+        except BackendUnavailableError:
+            raised.append("dispatch")
+    load, SL.load_library = SL.load_library, no_library
+    try:
+        strict.lookup(q)
+    except BackendUnavailableError:
+        raised.append("library")
+    finally:
+        SL.load_library = load
+    h = strict.health()
+    check(raised == ["dispatch", "library"] and SL.plain_calls == p0
+          and SL.launches == l0 and h["fallback_lookups"] == 0
+          and h["fallback_chain"] == ["cuda"]
+          and h["last_errors"][0].startswith("InjectedFault")
+          and h["last_errors"][1].startswith("OSError"),
+          f"chaos: the default service raised for {raised}, plain calls "
+          f"{SL.plain_calls - p0}, K1 launches {SL.launches - l0}, "
+          f"health {h['fallback_chain']} {h['fallback_lookups']} "
+          f"{h['last_errors'][:2]}")
+    check(np.array_equal(strict.lookup(q), want) and SL.launches > l0,
+          "chaos: the default service did not serve through K1 after the "
+          "faults cleared")
+    strict.close()
+    return h["fallback_chain"]
 
 
 # ---------------------------------------------------------------- index ----
@@ -2099,6 +2611,19 @@ def profile_serve_step(device, model, params) -> dict:
 
 # ----------------------------------------------------------------- main ----
 
+class PhaseClock:
+    """Host wall seconds of ``main``'s phases: each call closes the phase
+    named and opens the next; ``seconds`` maps the names to their times."""
+
+    def __init__(self):
+        self.t, self.seconds = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        self.t = now
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2125,22 +2650,39 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    lap = PhaseClock()
     info = phase_env(device)
     split_lib = phase_build()
     emit("bandwidth", measured_gbs=measure_bandwidth(device),
          published_tbs=PEAK_HBM_TBS, card=info["card"])
+    lap("build")
     kern = phase_kernel(device, args.seed, KERNEL_KEYS, QUERIES)
+    lap("kernel")
     serve = phase_serve(device, args.seed, args.serve_keys, QUERIES)
+    lap("serve")
     phase_merge(device, args.seed, KERNEL_KEYS, QUERIES)
+    lap("merge")
     cache, cache_svc, logical = phase_serve_cache(
         device, args.seed, args.serve_keys, QUERIES)
+    lap("serve_cache")
     queue = phase_serve_queue(device, args.seed, cache_svc, logical)
-    cache_svc.close()
+    check_healthy(cache_svc, "serve_cache")
+    lap("serve_queue")
+    # the durable phase takes the cached service over and drops it without
+    # close, as a crash would
+    durable = phase_durable(device, args.seed, cache_svc,
+                            cache_svc.snapshot.keys, QUERIES)
     del cache_svc, logical
     gc.collect()
+    torch.cuda.empty_cache()
+    lap("durable")
     merge_bg = phase_merge_background(device, args.seed, KERNEL_KEYS)
+    lap("merge_background")
+    chaos = phase_chaos(device, args.seed, CHAOS_KEYS, QUERIES)
+    lap("chaos")
     index = phase_index(device, args.seed, args.index_keys, QUERIES,
                         split_lib)
+    lap("index")
     # the lookup phases' planes are gone with their frames; hand their
     # cached blocks back before the 20 GB model is drawn
     gc.collect()
@@ -2148,10 +2690,14 @@ def main(argv=None) -> int:
     emit("memory", allocated=torch.cuda.memory_allocated(device),
          reserved=torch.cuda.memory_reserved(device))
     attn = phase_attention(device, args.seed)
+    lap("attention")
     prefill, model, params = phase_lm_prefill(device, args.seed,
                                               LM_PREFILL_SEQ)
+    lap("lm_prefill")
     phase_lm_serve(device, args.seed, model, params)
     del model, params
+    lap("lm_serve")
+    emit("phase_seconds", **lap.seconds)
     csrc = "src/repro_torch/kernels/csrc/"
     k2, k3 = ("src/repro/kernels/plex_segment_lookup.py:302",
               "src/repro/kernels/plex_segment_lookup.py:327")
@@ -2204,7 +2750,17 @@ def main(argv=None) -> int:
         "queue": {"launches": queue["launches"],
                   "ticket_p99_ms": queue["ticket_p99_ms"]},
         "merge_background": {"launches": merge_bg["launches"],
-                             "merges": merge_bg["merges"]}}] + [{
+                             "merges": merge_bg["merges"]},
+        # the reopened service (PlexService.open) and the chaos phase
+        "durable": {"launches": durable["launches"],
+                    "request_ms_first_after_open":
+                        durable["first_request_ms"],
+                    "kernel_ms_first_request":
+                        durable["kernel_ms_first_request"]},
+        "chaos": {"launches_before": chaos["k1_launches_before"],
+                  "launches_after": chaos["k1_launches_after"],
+                  "fallback_lookups": chaos["fallback_lookups"],
+                  "torch_over_k1": chaos["torch_over_k1"]}}] + [{
         "name": name, "route": "cuda", "source": sources[name],
         "replaces": replaces[name], "launches": k["launches"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
@@ -2214,7 +2770,9 @@ def main(argv=None) -> int:
         "on_main_path": name == "window_probe",
         **{f: k[f] for f in extra if f in k},
         **({"service_plane": serve["probe_200m"]}
-           if name == "bounded_search" else {})}
+           if name == "bounded_search" else {}),
+        **({"reopened_shard_launches": durable["index_launches"]}
+           if name == "window_probe" else {})}
         for name, k in index.items()] + [{
         "name": "flash_attention", "route": "cuda",
         "source": csrc + prefill["kernel"] + ".cu",

@@ -8,7 +8,10 @@ pipeline for CPU tensors. The LM substrate's serving side (``configs``,
 ``layers``, ``models``, ``serving.engine``, ``launch.serve``) runs the
 dense-attention architectures, its prefill attention through the
 hand-written flash-attention kernel ``kernels/csrc/flash_attention.cu``.
-Entry points default to the CUDA device and raise without one unless
+Backend names resolve through ``kernels.backends``; ``persist`` writes and
+reads the reference's on-disk generations, and ``resilience`` holds the
+fault-injection points and circuit breakers of the service's fallback
+chain. Entry points default to the CUDA device and raise without one unless
 ``device="cpu"`` is passed.
 """
 from .device import resolve_device

@@ -1,13 +1,13 @@
 """LearnedIndex + Snapshot — lookup dispatch and the immutable sharded index.
 
 ``LearnedIndex`` is the port's counterpart of ``repro.core.index.
-LearnedIndex``: one PLEX over one sorted key array, looked up through one of
-two backends, resolved by the plain mapping ``BACKENDS`` (the reference's
-registry is a later slice of the port):
+LearnedIndex``: one PLEX over one sorted key array, looked up through a
+backend resolved by the registry (``kernels.backends``):
 
 * ``"cuda"`` (the default) — ``kernels.ops.DevicePlex`` on the index's
-  device: the K2/K3 segment lookup and the K4 probe, one launch each per
-  call on a CUDA card (the plain PyTorch pipeline on ``device="cpu"``);
+  device: K2/K3 fused with K4's probe, one launch per call on a CUDA card
+  (the plain PyTorch pipeline on ``device="cpu"``);
+* ``"torch"`` — the same pipeline's plain PyTorch version, on any device;
 * ``"numpy"`` — the host ``PLEX.lookup``.
 
     idx = LearnedIndex.build(keys, eps=64)      # device defaults to CUDA
@@ -17,10 +17,17 @@ registry is a later slice of the port):
 ``Snapshot`` is the port's counterpart of ``repro.core.index.Snapshot``: the
 sorted key array, the per-shard frozen ``PLEX`` indexes (shard boundaries
 snapped to first occurrences), the shard-minima routing plane, and — lazily
-— the fused shard-major stacked device layout, cached per configuration.
-Once built a snapshot never changes (every host array is frozen), so an
-updatable service can swap in a new one with a single reference assignment
-while readers of the old one finish undisturbed.
+— the fused shard-major stacked device layout, cached per backend and
+configuration, its device planes built once per device and shared by every
+backend's impl (``cuda`` launches K1 on them, ``torch`` runs the plain
+pipeline on the same tensors). Once built a snapshot never changes (every
+host array is frozen), so an updatable service can swap in a new one with a
+single reference assignment while readers of the old one finish
+undisturbed.
+``Snapshot.save``/``Snapshot.load`` persist it as one generation of the
+reference's on-disk format (``persist.format``); a loaded snapshot hands its
+mapped planes and persisted statics to the first stacked build of each
+shard range through ``host_planes_fn`` (the reference's warm-start hook).
 
 The build is serial here; the process-pool build of the reference
 (``repro.core.parallel_build``) is a later slice of the port.
@@ -29,27 +36,19 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 
 from ..device import resolve_device
+from ..kernels.backends import BACKENDS, get_backend
 from .plex import PLEX, build_plex, freeze_arrays
 
 # keep each shard's float32 rank plane well inside the 2^24 limit
 SHARD_MAX_KEYS = 1 << 23
-# backend name -> whether it serves from the host PLEX (no device impl)
-BACKENDS = {"cuda": False, "numpy": True}
 
-
-def _check_backend(name: str) -> bool:
-    """Whether ``name`` is a host backend; unknown names raise."""
-    try:
-        return BACKENDS[name]
-    except KeyError:
-        raise ValueError(
-            f"unknown backend {name!r}; registered backends: "
-            f"{', '.join(repr(n) for n in BACKENDS)}") from None
+__all__ = ["BACKENDS", "LearnedIndex", "SHARD_MAX_KEYS", "Snapshot",
+           "shard_offsets"]
 
 
 @dataclasses.dataclass
@@ -60,6 +59,7 @@ class LearnedIndex:
     plex: PLEX
     block: int = 512
     device: Any = None
+    default_backend: str = "cuda"
     _impls: dict = dataclasses.field(default_factory=dict, repr=False)
     _stacked_impls: dict = dataclasses.field(default_factory=dict,
                                              repr=False)
@@ -67,15 +67,16 @@ class LearnedIndex:
     def __post_init__(self) -> None:
         if self.block % 128 != 0 or self.block <= 0:
             raise ValueError("block must be a positive multiple of 128")
+        get_backend(self.default_backend)     # fail unknown names early
         self.device = resolve_device(self.device)
 
     @classmethod
-    def build(cls, keys: np.ndarray, eps: int, *, block: int = 512,
-              device=None, **build_kw) -> "LearnedIndex":
+    def build(cls, keys: np.ndarray, eps: int, *, backend: str = "cuda",
+              block: int = 512, device=None, **build_kw) -> "LearnedIndex":
         """Build the underlying PLEX (host-side, the paper's single-pass
         build) and wrap it for dispatch."""
         return cls(plex=build_plex(keys, eps, **build_kw), block=block,
-                   device=device)
+                   device=device, default_backend=backend)
 
     # -- passthrough metadata ------------------------------------------------
     @property
@@ -92,31 +93,40 @@ class LearnedIndex:
 
     # -- dispatch ------------------------------------------------------------
     def backend_impl(self, backend: str | None = None):
-        """The (lazily constructed, cached) implementation for ``backend``:
-        the host ``PLEX`` for ``"numpy"``, a ``DevicePlex`` for ``"cuda"``
-        (the default)."""
-        backend = backend or "cuda"
-        if _check_backend(backend):
-            return self.plex
+        """The (lazily constructed, cached) implementation for ``backend``,
+        resolved through the registry: the host ``PLEX`` for a host backend,
+        the backend's index impl (a ``DevicePlex`` for ``cuda`` and
+        ``torch``) otherwise."""
+        backend = backend or self.default_backend
+        spec = get_backend(backend)
         impl = self._impls.get(backend)
         if impl is None:
-            from ..kernels.ops import DevicePlex
-            impl = DevicePlex.from_plex(self.plex, block=self.block,
-                                        device=self.device)
+            impl = (self.plex if spec.host else
+                    spec.index_factory(self.plex, block=self.block,
+                                       device=self.device))
             self._impls[backend] = impl
         return impl
 
-    def stacked_impl(self, *, probe: str | None = None):
-        """The single-shard stacked impl (``StackedTorchPlex``, the serving
-        path's fused kernel) of this index on its device, cached per probe
-        mode. A lone shard always unifies, so this is never ``None``."""
-        impl = self._stacked_impls.get(probe)
+    def stacked_impl(self, backend: str | None = None, *,
+                     probe: str | None = None, cache_slots: int = 0):
+        """The single-shard stacked impl (a ``StackedTorchPlex``, the
+        serving path's fused pipeline) of this index on its device for
+        ``backend``, cached per configuration. A lone shard always unifies,
+        so this is never ``None``; host backends have no device path and
+        raise."""
+        backend = backend or self.default_backend
+        spec = get_backend(backend)
+        if spec.stacked_factory is None:
+            raise ValueError(
+                f"backend {backend!r} has no stacked device path")
+        cfg = (backend, probe, int(cache_slots))
+        impl = self._stacked_impls.get(cfg)
         if impl is None:
-            from ..kernels.stacked_lookup import StackedTorchPlex
-            impl = StackedTorchPlex.from_plexes(
+            impl = spec.stacked_factory(
                 [self.plex], np.zeros(1, dtype=np.int64), device=self.device,
-                block=self.block, probe=probe)
-            self._stacked_impls[probe] = impl
+                block=self.block, probe=probe, cache_slots=cache_slots,
+                host_planes=None, summary_keys=None)
+            self._stacked_impls[cfg] = impl
         return impl
 
     def warmup(self, backend: str | None = None) -> None:
@@ -145,12 +155,21 @@ class Snapshot:
     """Immutable sharded index state: keys + frozen per-shard PLEX + planes.
 
     ``device`` is where the stacked planes of this snapshot live unless a
-    caller of ``stacked_impl`` asks for another one.
+    caller of ``stacked_impl`` asks for another one. A snapshot loaded from
+    disk (``Snapshot.load``) may be a partial view of its generation
+    (``persist.format.load_snapshot(shard_range=...)``): ``keys`` and
+    ``offsets`` are then rebased to the local slice, and ``shard_base`` /
+    ``key_base`` record the view's global position. ``mapped_bytes`` is
+    what the loader mapped (0 for a built snapshot).
     """
+
+    shard_base: int = 0
+    key_base: int = 0
+    mapped_bytes: int = 0
 
     def __init__(self, keys: np.ndarray, eps: int, offsets: np.ndarray,
                  shards: Sequence[PLEX], *, device=None, build_s: float = 0.0,
-                 epoch: int = 0):
+                 epoch: int = 0, host_planes_fn: Callable | None = None):
         self.device = resolve_device(device)
         self.keys = keys
         self.eps = int(eps)
@@ -162,8 +181,18 @@ class Snapshot:
         freeze_arrays(self.keys, self.offsets, self.shard_min)
         for px in self.shards:
             px.freeze()
-        # ([shard,] device, block, probe[, cache_slots]) -> impl | None
+        # (backend, [shard,] device, block, probe[, cache_slots]) -> impl |
+        # None
         self._stacked: dict = {}
+        # (device, shard or None) -> the StackedPlanes the impls of those
+        # shards share (the first impl's), whatever their backend
+        self._planes: dict = {}
+        # the warm-start hook of a loaded snapshot: ``fn(lo, hi)`` gives
+        # shards [lo, hi)'s ``_HostPlanes`` from the mapped file. Called
+        # once a shard range and device (its planes are then shared) and
+        # not cached: the device planes are the copies kept, and pinning
+        # host copies too would double resident memory
+        self._host_planes_fn = host_planes_fn
 
     @classmethod
     def build(cls, keys: np.ndarray, eps: int, *, n_shards: int | None = None,
@@ -202,37 +231,82 @@ class Snapshot:
         return np.clip(np.searchsorted(self.shard_min, q, side="right") - 1,
                        0, self.n_shards - 1)
 
-    def stacked_impl(self, *, device=None, block: int = 512,
-                     probe: str | None = None, cache_slots: int = 0):
-        """The fused shard-major stacked path of this snapshot
-        (``kernels.stacked_lookup.StackedTorchPlex``, with a hot-key cache
-        of ``cache_slots`` slots, a power of two or 0), or ``None`` when the
+    def _stacked_factory(self, backend: str):
+        spec = get_backend(backend)
+        if spec.stacked_factory is None:
+            raise ValueError(
+                f"backend {backend!r} has no stacked device path")
+        return spec.stacked_factory
+
+    def stacked_impl(self, backend: str = "cuda", *, device=None,
+                     block: int = 512, probe: str | None = None,
+                     cache_slots: int = 0):
+        """The fused shard-major stacked path of this snapshot on
+        ``backend`` (resolved through the registry; for ``cuda`` and
+        ``torch`` a ``StackedTorchPlex`` with a hot-key cache of
+        ``cache_slots`` slots, a power of two or 0), or ``None`` when the
         shards' static parameters cannot be unified. Cached per
         configuration, ``None`` results included."""
-        from ..kernels.stacked_lookup import StackedTorchPlex, \
-            check_cache_slots
+        from ..kernels.stacked_lookup import check_cache_slots
+        factory = self._stacked_factory(backend)
         check_cache_slots(cache_slots)
         dev = self.device if device is None else resolve_device(device)
-        cfg = (dev, int(block), probe, int(cache_slots))
+        cfg = (backend, dev, int(block), probe, int(cache_slots))
         if cfg not in self._stacked:
-            self._stacked[cfg] = StackedTorchPlex.from_plexes(
-                self.shards, self.offsets, device=dev, block=block,
-                probe=probe, cache_slots=cache_slots,
-                summary_keys=self.n_keys)
+            self._stacked[cfg] = self._build_impl(
+                factory, (dev, None), self.shards, self.offsets, (),
+                device=dev, block=block, probe=probe,
+                cache_slots=cache_slots)
         return self._stacked[cfg]
 
-    def shard_impl(self, s: int, *, device=None, block: int = 512,
-                   probe: str | None = None):
-        """Single-shard stacked impl of shard ``s`` (row offset 0; a lone
-        shard always unifies) — the per-shard path when ``stacked_impl``
-        is ``None``. Cached per configuration. Every shard's planes share
-        the card, so the key summary's levels follow the whole snapshot's
-        size."""
-        from ..kernels.stacked_lookup import StackedTorchPlex
+    def _build_impl(self, factory, pkey, plexes, row_off, span, **kw):
+        """One stacked impl through ``factory`` on the planes the impls of
+        the same shards and device already share (``pkey``), built from
+        the mapped file's host planes (shards ``span``) when a loaded
+        snapshot has none yet. Backends that differ only in their route
+        (K1 or its plain version) thus hold one copy of the planes."""
+        from ..kernels.planes import StackedPlanes
+        planes = self._planes.get(pkey)
+        hps = (self._host_planes_fn(*span)
+               if planes is None and self._host_planes_fn is not None
+               else None)
+        impl = factory(plexes, row_off, host_planes=hps,
+                       summary_keys=self.n_keys, planes=planes, **kw)
+        if planes is None and isinstance(getattr(impl, "planes", None),
+                                         StackedPlanes):
+            self._planes[pkey] = impl.planes
+        return impl
+
+    def shard_impl(self, s: int, backend: str = "cuda", *, device=None,
+                   block: int = 512, probe: str | None = None):
+        """Single-shard stacked impl of shard ``s`` on ``backend`` (row
+        offset 0; a lone shard always unifies) — the per-shard path when
+        ``stacked_impl`` is ``None``. Cached per configuration. Every
+        shard's planes share the card, so the key summary's levels follow
+        the whole snapshot's size."""
+        factory = self._stacked_factory(backend)
         dev = self.device if device is None else resolve_device(device)
-        cfg = (int(s), dev, int(block), probe)
+        cfg = (backend, int(s), dev, int(block), probe)
         if cfg not in self._stacked:
-            self._stacked[cfg] = StackedTorchPlex.from_plexes(
-                [self.shards[s]], np.zeros(1, dtype=np.int64), device=dev,
-                block=block, probe=probe, summary_keys=self.n_keys)
+            self._stacked[cfg] = self._build_impl(
+                factory, (dev, int(s)), [self.shards[s]],
+                np.zeros(1, dtype=np.int64), (s, s + 1), device=dev,
+                block=block, probe=probe, cache_slots=0)
         return self._stacked[cfg]
+
+    # -- durability (``persist``) ---------------------------------------------
+    def save(self, gen_dir, *, fsync: bool = True):
+        """Serialise this snapshot into ``gen_dir`` (one generation of the
+        on-disk format, ``persist.format``). Standalone use only: a durable
+        ``PlexService`` manages generations and the manifest itself."""
+        from ..persist.format import save_snapshot
+        return save_snapshot(gen_dir, self, fsync=fsync)
+
+    @classmethod
+    def load(cls, gen_dir, *, verify: bool = False,
+             device=None) -> "Snapshot":
+        """Map one persisted generation back into an immutable snapshot
+        whose planes go to ``device`` (no index rebuild;
+        ``persist.format.load_snapshot``)."""
+        from ..persist.format import load_snapshot
+        return load_snapshot(gen_dir, verify=verify, device=device)

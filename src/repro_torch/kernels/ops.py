@@ -27,7 +27,7 @@ from ..core.plex import PLEX
 from ..device import resolve_device
 from .keys import to_biased
 from .planes import PlexPlanes, build_planes, finalize_indices, pad_queries
-from .segment_lookup import window_probe
+from .segment_lookup import window_probe, window_probe_plain
 
 DEFAULT_BLOCK = 512
 
@@ -35,18 +35,21 @@ DEFAULT_BLOCK = 512
 @dataclasses.dataclass
 class DevicePlex:
     """One PLEX on one device: its planes and the batch block. The probe
-    runs in its summary form (``bounded_search``'s ``"bisect"``)."""
+    runs in its summary form (``bounded_search``'s ``"bisect"``). ``plain``:
+    every lookup runs ``window_probe_plain``, on the card too (the
+    registry's ``torch`` backend)."""
     planes: PlexPlanes
     block: int
+    plain: bool = False
 
     @classmethod
     def from_plex(cls, px: PLEX, *, block: int = DEFAULT_BLOCK,
-                  device=None) -> "DevicePlex":
+                  device=None, plain: bool = False) -> "DevicePlex":
         """Planes of ``px`` on ``device`` (default: the CUDA card)."""
         if block % 128 != 0 or block <= 0:
             raise ValueError("block must be a positive multiple of 128")
         return cls(planes=build_planes(px, resolve_device(device)),
-                   block=int(block))
+                   block=int(block), plain=bool(plain))
 
     def lookup(self, q: np.ndarray) -> np.ndarray:
         """Batched device lookup; same contract as ``PLEX.lookup`` for
@@ -57,4 +60,5 @@ class DevicePlex:
         pp = self.planes
         qp, b = pad_queries(q, self.block)
         qd = torch.from_numpy(to_biased(qp)).to(pp.device)
-        return finalize_indices(window_probe(pp, qd), b, pp.n_real)
+        probe = window_probe_plain if self.plain else window_probe
+        return finalize_indices(probe(pp, qd), b, pp.n_real)

@@ -203,23 +203,86 @@ def _host_statics(px: PLEX) -> _HostStatics:
                         n_real=n_real)
 
 
-def _host_planes(px: PLEX) -> _HostPlanes:
-    """Host PLEX -> host plane arrays + static search parameters."""
-    hs = _host_statics(px)            # includes the f32 rank-plane guard
-    dk = np.full(hs.n_data, MAX_BIASED, dtype=np.int64)
-    dk[:hs.n_real] = to_biased(px.keys)
-    sk = to_biased(px.spline.keys)
-    spos = px.spline.positions.astype(np.float32)
+def _spline_planes(keys: np.ndarray, positions: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Biased spline-key plane and float32 rank plane of one spline."""
+    sk = to_biased(keys)
+    spos = np.asarray(positions).astype(np.float32)
     if sk.size == 1:
         # every key of the shard is equal: a one-point spline has no
         # segment, and the clip to [0, n_spline - 2] would gather index -1,
         # another shard's row (the reference does, ROADMAP queue 3, R4).
         # A doubled point is a zero-width segment predicting its own rank.
         sk, spos = np.repeat(sk, 2), np.repeat(spos, 2)
+    return sk, spos
+
+
+def _data_plane(keys: np.ndarray, n_data: int) -> np.ndarray:
+    """Biased data plane of ``keys``, max-key padded to ``n_data``."""
+    dk = np.full(n_data, MAX_BIASED, dtype=np.int64)
+    np.bitwise_xor(keys, np.uint64(1 << 63),
+                   out=dk[:len(keys)].view(np.uint64))
+    return dk
+
+
+def _host_planes(px: PLEX) -> _HostPlanes:
+    """Host PLEX -> host plane arrays + static search parameters."""
+    hs = _host_statics(px)            # includes the f32 rank-plane guard
+    sk, spos = _spline_planes(px.spline.keys, px.spline.positions)
     return _HostPlanes(sk=sk, spos=spos,
-                       dk=dk, n_data=hs.n_data, n_real=hs.n_real,
-                       kind=hs.kind, layer_np=hs.layer_np, static=hs.static,
-                       eps_eff=hs.eps_eff, window=hs.window)
+                       dk=_data_plane(px.keys, hs.n_data), n_data=hs.n_data,
+                       n_real=hs.n_real, kind=hs.kind, layer_np=hs.layer_np,
+                       static=hs.static, eps_eff=hs.eps_eff,
+                       window=hs.window)
+
+
+# -- persisted statics (the snapshot file's header, ``persist.format``) -------
+#
+# A snapshot file holds the reference's statics, byte for byte, so that each
+# package opens the other's generations. They differ from the port's in the
+# radix minimum only: the reference keeps its two 32-bit words ``min_hi`` and
+# ``min_lo``, the port one biased ``min_key``.
+
+def persisted_static(hs: _HostStatics) -> dict[str, Any]:
+    """``hs.static`` in the reference's form: the same keys, in the same
+    order, so that ``json.dumps`` gives the reference's bytes."""
+    s = hs.static
+    if hs.kind != "radix":
+        return dict(s)
+    mk = int(s["min_key"]) + (1 << 63)            # the unbiased u64 minimum
+    return dict(shift=s["shift"], r=s["r"], min_hi=(mk >> 32) & 0xFFFFFFFF,
+                min_lo=mk & 0xFFFFFFFF, max_win=s["max_win"],
+                mode=s["mode"])
+
+
+def _port_static(kind: str, static: dict[str, Any]) -> dict[str, Any]:
+    """Inverse of ``persisted_static``."""
+    if kind != "radix":
+        return dict(static)
+    mk = (int(static["min_hi"]) << 32) | int(static["min_lo"])
+    return dict(shift=int(static["shift"]), r=int(static["r"]),
+                min_key=mk - (1 << 63), max_win=int(static["max_win"]),
+                mode=static["mode"])
+
+
+def _host_planes_from_mapped(meta: dict[str, Any], keys: np.ndarray,
+                             spline_keys: np.ndarray,
+                             spline_positions: np.ndarray,
+                             layer: np.ndarray) -> _HostPlanes:
+    """One shard's ``_HostPlanes`` from a snapshot file's mapped planes and
+    its header entry ``meta`` (the persisted statics): the warm path,
+    which derives nothing the file holds. Only the port's own planes are
+    made here: the biased key planes (the data plane is the one O(n) host
+    pass, its padding by ``meta["n_data"]``) and the float32 rank plane; a
+    one-point spline is doubled in memory as in ``_host_planes`` (R4)."""
+    sk, spos = _spline_planes(spline_keys, spline_positions)
+    name = "table" if meta["kind"] == "radix" else "cells"
+    return _HostPlanes(
+        sk=sk, spos=spos, dk=_data_plane(keys, int(meta["n_data"])),
+        n_data=int(meta["n_data"]), n_real=int(meta["n_real"]),
+        kind=meta["kind"], layer_np={name: layer},
+        static=_port_static(meta["kind"], meta["static"]),
+        eps_eff=int(meta["eps_eff"]), window=int(meta["window"]))
 
 
 @dataclasses.dataclass

@@ -53,7 +53,10 @@ same launch:
 runs on any device; ``stacked_lookup`` dispatches on the query tensor's
 device: the plain version for CPU tensors, the CUDA kernel
 (``csrc/stacked_lookup.cu``) for CUDA tensors — never a fallback between
-them. ``launches`` counts kernel launches. The plain version gathers the
+them. Only a caller that asks for it by ``plain=True`` (the registry's
+``torch`` backend, ``kernels.backends``) runs the plain version on CUDA
+tensors. ``launches`` counts kernel launches, ``plain_calls`` the calls
+that asked for the plain version. The plain version gathers the
 whole batch's slots first and then writes them, as the reference does, so
 its hit counts equal the reference's wherever no two distinct keys of a
 launch share a slot; in the kernel, lanes of one launch see one another's
@@ -100,6 +103,8 @@ N_PROBE_BUCKETS = 16
 # kernel launches of ``stacked_lookup`` on CUDA tensors (plain integer; set
 # to 0 before a run and read after it to see which path ran)
 launches = 0
+# calls of ``stacked_lookup`` that asked for the plain version by ``plain``
+plain_calls = 0
 
 _LOW32 = 0xFFFFFFFF
 # bucket k >= 1 starts at 2^(k-1)
@@ -407,7 +412,8 @@ def stacked_lookup(sp: StackedPlanes, probe: str, q: torch.Tensor,
                    delta: DeltaPlanes | None = None, *, aux: bool = False,
                    overlap: bool = False, cache: torch.Tensor | None = None,
                    hits: torch.Tensor | None = None,
-                   counters: torch.Tensor | None = None):
+                   counters: torch.Tensor | None = None,
+                   plain: bool = False):
     """Global (merged, with ``delta``) int32 indices for biased int64
     queries ``q`` on the planes' device. With ``aux`` also the routed shard
     ids and local window bases (``None`` otherwise). ``overlap``: the
@@ -418,11 +424,14 @@ def stacked_lookup(sp: StackedPlanes, probe: str, q: torch.Tensor,
     all three are updated in place.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise, unless ``plain`` asks for the plain version on any device."""
+    global plain_calls
     if q.device != sp.device:
         raise ValueError(f"queries on {q.device}, planes on {sp.device}")
     _check_options(sp, aux, cache, hits, counters)
-    if q.device.type == "cpu":
+    if plain:
+        plain_calls += 1
+    if plain or q.device.type == "cpu":
         out, sid, base = stacked_lookup_plain(sp, probe, q, delta,
                                               cache=cache, hits=hits,
                                               counters=counters)
@@ -461,12 +470,15 @@ class StackedTorchPlex:
     lookup, equal to searchsorted over the logical key array). With
     ``cache_slots`` the impl owns a hot-key cache of that many slots on the
     planes' device; while ``METRICS`` is armed for the counted dispatch it
-    owns a counter plane, read and reset by ``take_counters``."""
+    owns a counter plane, read and reset by ``take_counters``. ``plain``:
+    every launch runs the plain version, on the card too (the ``torch``
+    backend)."""
 
     planes: StackedPlanes
     block: int
     probe: str
     cache_slots: int = 0
+    plain: bool = False
     _cache: torch.Tensor | None = dataclasses.field(default=None,
                                                     repr=False)
     _counters: torch.Tensor | None = dataclasses.field(default=None,
@@ -476,12 +488,16 @@ class StackedTorchPlex:
     def from_plexes(cls, plexes: Sequence[PLEX], row_off: np.ndarray, *,
                     device=None, block: int = DEFAULT_BLOCK,
                     probe: str | None = None, cache_slots: int = 0,
-                    host_planes=None, summary_keys: int | None = None
+                    host_planes=None, summary_keys: int | None = None,
+                    plain: bool = False, planes: StackedPlanes | None = None
                     ) -> "StackedTorchPlex | None":
         """Build the fused stacked path on ``device``, or ``None`` when the
         shards' static parameters cannot be unified. ``cache_slots``: a
-        power of two, or 0 for no cache. ``summary_keys``: see
-        ``build_stacked_planes``."""
+        power of two, or 0 for no cache. ``host_planes``: the shards'
+        ``_HostPlanes`` when the caller has them (a loaded snapshot).
+        ``summary_keys``: see ``build_stacked_planes``. ``plain``: see the
+        class docstring. ``planes``: these shards' device planes, already
+        built (another impl's): adopted as they are, nothing is rebuilt."""
         device = resolve_device(device)
         probe = probe or DEFAULT_PROBE
         if probe not in PROBE_MODES:
@@ -489,13 +505,13 @@ class StackedTorchPlex:
         if block % 128 != 0:
             raise ValueError("block must be a multiple of 128 lanes")
         check_cache_slots(cache_slots)
-        sp = build_stacked_planes(plexes, row_off, device,
-                                  host_planes=host_planes,
-                                  summary_keys=summary_keys)
+        sp = planes if planes is not None else build_stacked_planes(
+            plexes, row_off, device, host_planes=host_planes,
+            summary_keys=summary_keys)
         if sp is None:
             return None
         st = cls(planes=sp, block=int(block), probe=probe,
-                 cache_slots=int(cache_slots))
+                 cache_slots=int(cache_slots), plain=bool(plain))
         st.reset_cache()
         return st
 
@@ -553,17 +569,18 @@ class StackedTorchPlex:
                 self._counters = self._fresh_counters()
             out, _, _ = stacked_lookup(self.planes, self.probe, q, dp,
                                        overlap=overlap,
-                                       counters=self._counters)
+                                       counters=self._counters,
+                                       plain=self.plain)
             return LaneResult(out)
         if self._cache is not None:
             if hits is None:
                 hits = torch.zeros(1, dtype=torch.int32, device=q.device)
             out, _, _ = stacked_lookup(self.planes, self.probe, q, dp,
                                        overlap=overlap, cache=self._cache,
-                                       hits=hits)
+                                       hits=hits, plain=self.plain)
             return LaneResult(out, hits)
         out, _, _ = stacked_lookup(self.planes, self.probe, q, dp,
-                                   overlap=overlap)
+                                   overlap=overlap, plain=self.plain)
         return LaneResult(out)
 
     def dispatch(self, qd: torch.Tensor, delta: DeltaPlanes | None = None,

@@ -1,11 +1,16 @@
 """PlexService — serve (and update) PLEX lookups on one device.
 
 The port of ``repro.serving.plex_service.PlexService``'s single-device
-serving: a sharded snapshot built on the host, a delta buffer of inserts and
-deletes, and one device launch per micro-batch.
+serving: a sharded snapshot built on the host (or opened from disk), a
+delta buffer of inserts and deletes, and one device launch per
+micro-batch.
 
+* **Backends.** Names resolve through the registry (``kernels.backends``):
+  ``cuda`` (the default: K1, one launch per micro-batch), ``torch`` (the
+  same pipeline's plain PyTorch version on the same device) and ``numpy``
+  (the host PLEX). ``lookup(q, backend=)`` picks one per call.
 * **Fused path.** When the shards unify (``kernels.planes``), each
-  ``block``-sized micro-batch is one K1 launch, with the live delta folded
+  ``block``-sized micro-batch is one launch, with the live delta folded
   into the same launch.
 * **Per-shard path.** When they do not (mixed radix/CHT shards), queries are
   routed and grouped by shard on the host, uploaded once, and each shard's
@@ -21,10 +26,9 @@ deletes, and one device launch per micro-batch.
   the cache on or off.
 * **Counted dispatch.** While ``obs.METRICS`` is armed (with
   ``counted_dispatch``), the fused path runs K1 with its counter plane
-  (bypassing the cache) and the per-shard path counts the host routing;
-  both fold at every sync point into the per-epoch ``live_hotness()`` and
-  ``probe_trip_hist()`` (zero probe trips on the per-shard path) and into
-  ``METRICS``.
+  (bypassing the cache) and the per-shard and host paths count the host
+  routing; both fold at every sync point into the per-epoch
+  ``live_hotness()`` and ``probe_trip_hist()`` and into ``METRICS``.
 * **Queue.** ``submit()`` packs the queries of many callers into shared
   micro-batches: full blocks launch at once, a remainder once its oldest
   query has waited ``max_delay_s`` (a timer thread flushes and drains it).
@@ -45,19 +49,42 @@ deletes, and one device launch per micro-batch.
   captures the delta under the lock, builds and uploads the new planes on
   a CUDA stream of its own with no lock held (updates land in an op
   journal meanwhile), synchronises that stream, and publishes with the
-  journal's residual replayed. A failed merge leaves the live state as it
-  was and arms a capped exponential backoff.
+  journal's residual replayed.
+* **Fault tolerance.** Every lookup runs through a fallback chain guarded
+  by per-backend circuit breakers (``resilience.breakers``): a failed
+  dispatch, or an open breaker, retries the identical merged lookup on the
+  next backend — ``cuda`` -> ``torch`` -> ``numpy`` with
+  ``fallback="auto"`` (a sequence names the chain, ``None`` disables it)
+  — so degraded serving is slower, never wrong; only an exhausted chain
+  raises, as ``BackendUnavailableError``. The chain is the default on the
+  CPU only (``default_fallback``): on the card a K1 that fails to build or
+  launch raises unless the caller asked for degraded serving, so no plain
+  version or host PLEX answers in its place unasked. Every fallback logs a
+  warning and counts in ``stats.fallback_lookups``. A failed queue block is
+  answered through the same chain (``_fill_pieces_fallback``). A failed
+  merge leaves the live state as it was and arms a capped exponential
+  backoff. ``health()`` tells degraded from broken: generation, queue
+  depth, WAL bytes, breaker states, the recent errors (the first error of
+  the service's life, a kernel library that failed to build for one, is
+  kept as the first of them).
+* **Durability.** ``save(dir)`` persists the snapshot as a numbered
+  generation of the reference's on-disk format (``persist``), seeds a
+  fresh WAL with the live delta and publishes the manifest; from then on
+  every ``insert``/``delete`` appends a WAL record before it mutates the
+  delta, and a merge writes the next generation and commits it (one
+  manifest rename) before its swap, then collects the old one.
+  ``PlexService.open(dir)`` restarts from the last committed generation in
+  load time: the planes are mapped and uploaded with the persisted statics
+  (``load_s``), the WAL's valid prefix is replayed, and an unservable
+  generation is quarantined in favour of the last known good one
+  (``keep_generations``).
 
 Consistency: ``insert``/``delete``/``merge`` drain the queue first, so a
 queued lookup observes the state it was submitted against; ``lookup``
 itself is lock-free and captures one consistent state per call.
 
-There is no fallback chain: a kernel that fails to build or launch raises
-out of ``lookup``, ``submit`` and ``drain`` (a failed queued batch parks the
-error on its tickets first, so no ticket hangs). ``health()``, the backend
-registry and ``throughput(backends=)``, persistence, fault injection,
-tracing and the routed mesh are later slices of the port (``ROADMAP.md``
-queue 1, items 4, 6, 7, 8 and 10).
+Tracing and incident reports, and the routed mesh, are later slices of the
+port (``ROADMAP.md`` queue 1, items 8 and 10).
 """
 from __future__ import annotations
 
@@ -65,28 +92,57 @@ import collections
 import contextlib
 import dataclasses
 import logging
+import pathlib
+import shutil
 import threading
 import time
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
 
 from ..core.index import Snapshot
 from ..device import resolve_device
+from ..kernels.backends import backend_names, get_backend
 from ..kernels.keys import to_biased
 from ..kernels.planes import build_delta_planes, finalize_indices
 from ..kernels.stacked_lookup import N_PROBE_BUCKETS, PROBE_MODES, \
     LaneResult, StackedTorchPlex, check_cache_slots
 from ..obs.metrics import METRICS
-from ..resilience.errors import MergeFailedError, QueueFullError
+from ..persist.format import load_snapshot, save_snapshot
+from ..persist.manifest import CorruptManifestError, Manifest, gen_name, \
+    read_manifest, wal_name, write_manifest
+from ..persist.wal import OP_DELETE, OP_INSERT, WriteAheadLog
+from ..resilience.breakers import CLOSED, DEFAULT_COOLDOWN_S, \
+    DEFAULT_FAILURE_THRESHOLD, CircuitBreaker
+from ..resilience.errors import BackendUnavailableError, MergeFailedError, \
+    NoServableGenerationError, QueueFullError
+from ..resilience.faults import FAULTS, POINT_BACKEND_DISPATCH, \
+    POINT_MERGE_BUILD, POINT_MERGE_WORKER, fire
 from .delta import DELTA_CAP_MIN, DeltaBuffer, next_pow2
 
-__all__ = ["DEFAULT_MERGE_THRESHOLD", "LookupTicket", "PlexService",
-           "ServiceStats"]
+__all__ = ["DEFAULT_MERGE_THRESHOLD", "DEFAULT_WAL_ROTATE_BYTES",
+           "LookupTicket", "PlexService", "QUARANTINE_DIR", "ServiceStats",
+           "default_fallback"]
 
 log = logging.getLogger("repro_torch.serving")
 
 DEFAULT_MERGE_THRESHOLD = 4096
+# WAL bytes that trigger an in-place compaction (checkpoint + pending ops),
+# so recovery replay stays bounded by the delta, not the epoch's churn; 0
+# disables rotation
+DEFAULT_WAL_ROTATE_BYTES = 4 << 20
+# the degradation order of fallback="auto": every backend computes the
+# identical answer, so each step right is slower, never wrong
+_CHAIN_ORDER = ("cuda", "torch", "numpy")
+# fallback= left unset: default_fallback(device) decides
+_UNSET = object()
+# where open()'s last-known-good recovery moves unservable generations,
+# outside every gen-*/wal-* glob
+QUARANTINE_DIR = "quarantine"
+# recent errors health() reports (the service's first error stays first)
+_MAX_ERRORS = 16
+_WAL_OPS = {"insert": OP_INSERT, "delete": OP_DELETE}
 _BIAS = np.uint64(1 << 63)
 
 
@@ -107,8 +163,14 @@ class ServiceStats:
     deletes: int = 0              # logical occurrences removed
     merges: int = 0
     merge_s: float = 0.0          # capture to publish, summed
-    merge_failures: int = 0       # contained merge failures
+    wal_rotations: int = 0        # durable-WAL compactions
+    # resilience counters
+    fallback_lookups: int = 0     # lookups answered by a later backend
+    backend_failures: int = 0     # dispatch/sync failures (incl. injected)
+    merge_failures: int = 0       # contained merge/commit failures
     shed_queries: int = 0         # lanes refused by admission control
+    # per-backend breaker states (the full snapshots are in health())
+    breakers: dict = dataclasses.field(default_factory=dict)
     # guards the per-epoch cache counters against a merge's new_epoch
     # racing a serving thread's sync-point adds (check-epoch-then-add must
     # be atomic, or an old epoch's batch lands in the new epoch's rate)
@@ -197,24 +259,126 @@ class LookupTicket:
 @dataclasses.dataclass(frozen=True)
 class _ServiceState:
     """One consistent (snapshot, delta, fused impl) triple; published by a
-    single reference assignment at a merge."""
+    single reference assignment at a merge. ``stacked`` is the default
+    backend's fused impl (``None``: the shards do not unify, or the default
+    backend is a host one)."""
     snapshot: Snapshot
     delta: DeltaBuffer
     stacked: StackedTorchPlex | None
 
 
+@dataclasses.dataclass
+class _DurableState:
+    """Durable-mode attachment: the directory, the committed generation and
+    the open WAL handle of that generation; swapped as a unit when a merge
+    commits the next generation (under the service lock)."""
+    root: pathlib.Path
+    generation: int
+    wal: WriteAheadLog
+    fsync: bool = True
+
+
+def _coalesce_ops(records: Sequence[tuple[int, np.ndarray]]
+                  ) -> Iterable[tuple[int, np.ndarray]]:
+    """Merge runs of consecutive same-opcode WAL records into one op each
+    (inserts within a run commute, and so do deletes; the run boundaries
+    keep every insert/delete interleaving)."""
+    run_op: int | None = None
+    run: list[np.ndarray] = []
+    for op, keys in records:
+        if op != run_op and run:
+            yield run_op, np.concatenate(run)
+            run = []
+        run_op = op
+        run.append(keys)
+    if run:
+        yield run_op, np.concatenate(run)
+
+
+def _gen_num(p: pathlib.Path) -> int | None:
+    """Generation number of a ``gen-*`` / ``wal-*`` name, or ``None`` for a
+    name that does not parse (never delete what cannot be identified)."""
+    try:
+        return int(p.stem.split("-", 1)[1])
+    except (IndexError, ValueError):
+        return None
+
+
+def _gc_generations(root: pathlib.Path, keep: int, retain: int = 1) -> None:
+    """Remove generation dirs and WAL segments superseded by ``keep``,
+    retaining the newest ``retain`` generations (``keep`` and up to
+    ``retain - 1`` predecessors: ``open``'s last-known-good candidates).
+    Called only after the manifest has committed ``keep``. Best-effort: a
+    leftover is collected at the next commit."""
+    retain = max(int(retain), 1)
+    gens = sorted((g for p in root.glob("gen-*")
+                   if p.is_dir() and (g := _gen_num(p)) is not None
+                   and g <= keep), reverse=True)
+    live = set(gens[:retain]) | {keep}
+    for p in root.glob("gen-*"):
+        if p.is_dir() and _gen_num(p) not in live:
+            log.info("gc(%s): removing generation %s", root, p.name)
+            shutil.rmtree(p, ignore_errors=True)
+    for p in root.glob("wal-*.log"):
+        if _gen_num(p) not in live:
+            log.info("gc(%s): removing WAL segment %s", root, p.name)
+            try:
+                p.unlink()
+            except OSError:  # pragma: no cover
+                pass
+
+
+def _quarantine(root: pathlib.Path, *paths: pathlib.Path) -> None:
+    """Move unservable on-disk state into ``root/quarantine/`` (forensic
+    evidence, outside every ``gen-*``/``wal-*`` glob). Best-effort: a path
+    that cannot be moved stays for the operator."""
+    qdir = root / QUARANTINE_DIR
+    for p in paths:
+        if not p.exists():
+            continue
+        try:
+            qdir.mkdir(exist_ok=True)
+            target = qdir / p.name
+            if target.is_dir():
+                shutil.rmtree(target, ignore_errors=True)
+            elif target.exists():
+                target.unlink()
+            p.rename(target)
+            log.warning("quarantine(%s): moved %s aside", root, p.name)
+        except OSError as e:  # pragma: no cover - fs-specific
+            log.warning("quarantine(%s): could not move %s (%s)", root,
+                        p.name, e)
+
+
+def default_fallback(device) -> str | None:
+    """``fallback=``'s default on ``device``: ``"auto"`` on the CPU, where
+    every backend runs a plain version anyway; ``None`` on the card, so a
+    kernel that fails to build or launch raises rather than being answered
+    by the plain pipeline or the host. Degraded serving on the card is the
+    caller's explicit choice (``fallback="auto"`` or a sequence)."""
+    return None if torch.device(device).type == "cuda" else "auto"
+
+
 class PlexService:
     """Serve (and update) PLEX lookups across shards on one device."""
 
-    def __init__(self, keys: np.ndarray, eps: int = 64, *,
-                 n_shards: int | None = None, block: int = 512,
-                 probe: str | None = None, cache_slots: int = 0,
-                 max_delay_s: float = 0.002,
+    def __init__(self, keys: np.ndarray | None, eps: int = 64, *,
+                 n_shards: int | None = None, backend: str = "cuda",
+                 block: int = 512, probe: str | None = None,
+                 cache_slots: int = 0, max_delay_s: float = 0.002,
                  merge_threshold: int = DEFAULT_MERGE_THRESHOLD,
+                 wal_rotate_bytes: int = DEFAULT_WAL_ROTATE_BYTES,
+                 fallback: object = _UNSET,
+                 breaker_threshold: int = DEFAULT_FAILURE_THRESHOLD,
+                 breaker_cooldown_s: float = DEFAULT_COOLDOWN_S,
+                 breaker_clock=time.monotonic,
                  max_queue: int = 0, overflow: str = "reject",
                  merge_mode: str = "sync", merge_backoff_s: float = 0.05,
-                 merge_backoff_cap_s: float = 5.0, device=None, **build_kw):
+                 merge_backoff_cap_s: float = 5.0,
+                 keep_generations: int = 1, device=None,
+                 _snapshot: Snapshot | None = None, **build_kw):
         self.device = resolve_device(device)
+        get_backend(backend)          # fail unknown names at construction
         if block % 128 != 0:
             raise ValueError("block must be a multiple of 128 lanes")
         if probe is not None and probe not in PROBE_MODES:
@@ -226,20 +390,47 @@ class PlexService:
             raise ValueError("max_queue must be >= 0 (0 = unbounded)")
         if merge_mode not in ("sync", "background"):
             raise ValueError("merge_mode must be 'sync' or 'background'")
-        self.eps = int(eps)
+        if keep_generations < 1:
+            raise ValueError("keep_generations must be >= 1")
+        if fallback is _UNSET:
+            fallback = default_fallback(self.device)
+        if isinstance(fallback, str) and fallback != "auto":
+            raise ValueError("fallback must be 'auto', None, or a sequence "
+                             "of backend names")
+        if fallback is not None and fallback != "auto":
+            fallback = tuple(fallback)
+            for b in fallback:
+                get_backend(b)        # fail unknown chain names up front
+        self.eps = int(eps) if _snapshot is None else _snapshot.eps
+        self.default_backend = backend
         self.block = int(block)
         self.probe = probe
         self.cache_slots = int(cache_slots)
         self.max_delay_s = float(max_delay_s)
         self.merge_threshold = int(merge_threshold)
+        self.wal_rotate_bytes = int(wal_rotate_bytes)
         self.max_queue = int(max_queue)
         self.overflow = overflow
         self.merge_mode = merge_mode
         self.merge_backoff_s = float(merge_backoff_s)
         self.merge_backoff_cap_s = float(merge_backoff_cap_s)
+        self.keep_generations = int(keep_generations)
         self.stats = ServiceStats()
         self._n_shards_req = n_shards
         self._build_kw = build_kw
+        # resilience: the fallback chain per requested backend and one
+        # breaker per backend
+        self._fallback_req = fallback
+        self.breaker_threshold = int(breaker_threshold)
+        self.breaker_cooldown_s = float(breaker_cooldown_s)
+        self._breaker_clock = breaker_clock
+        self._chains: dict[str, tuple[str, ...]] = {}
+        self._breakers: dict[str, CircuitBreaker] = {}
+        self._chain = self._chain_for(backend)
+        for b in self._chain:
+            self.stats.breakers[b] = self._breaker(b).state
+        self._errors: list[str] = []
+        self._errors_lock = threading.Lock()
         # the merge threshold bounds the buffer, so the device view is
         # sized to it up front and keeps one capacity per snapshot
         self._delta_capacity = max(
@@ -251,10 +442,11 @@ class PlexService:
         self._backlog_since: float | None = None
         self._closed = False
         # background merges: _merge_mutex serialises merges with each other
-        # (not with mutations: the lock order is _merge_mutex -> _lock, and
-        # a background merge never holds _lock across the rebuild). The op
-        # journal holds every mutation since the last capture point, the
-        # residual the publish replays into the fresh delta.
+        # and with save() (not with mutations: the lock order is
+        # _merge_mutex -> _lock, and a background merge never holds _lock
+        # across the rebuild). The op journal holds every mutation since
+        # the last capture point, the residual the publish replays into the
+        # fresh delta.
         self._merge_mutex = threading.Lock()
         self._merge_wakeup = threading.Event()
         self._merge_worker: threading.Thread | None = None
@@ -270,8 +462,16 @@ class PlexService:
         self._outstanding: list[tuple] = []
         self._lock = threading.RLock()
         self._timer: threading.Timer | None = None
-        snap = Snapshot.build(keys, self.eps, n_shards=n_shards,
-                              device=self.device, **build_kw)
+        # durable-mode attachment (None: in memory only); load_s is the wall
+        # time PlexService.open took (map, planes, WAL replay)
+        self._dur: _DurableState | None = None
+        self.load_s = 0.0
+        if _snapshot is not None:
+            snap = _snapshot
+        else:
+            keys = np.ascontiguousarray(keys, dtype=np.uint64)
+            snap = Snapshot.build(keys, self.eps, n_shards=n_shards,
+                                  device=self.device, **build_kw)
         self._state = self._new_state(snap)
         # live per-shard routed counts and probe-travel histogram of the
         # current epoch, folded from the counted dispatch at sync points;
@@ -279,17 +479,28 @@ class PlexService:
         self._live = self._fresh_live(snap)
 
     def _new_state(self, snap: Snapshot) -> _ServiceState:
-        """Put ``snap``'s planes on the device (the fused planes, or every
-        shard's own when the shards do not unify), with a fresh delta and,
-        with ``cache_slots``, an empty cache."""
-        stacked = snap.stacked_impl(block=self.block, probe=self.probe,
-                                    cache_slots=self.cache_slots)
-        if stacked is None:
-            for s in range(snap.n_shards):
-                snap.shard_impl(s, block=self.block, probe=self.probe)
+        """Put ``snap``'s planes on the device for the default backend (the
+        fused planes, or every shard's own when the shards do not unify),
+        with a fresh delta and, with ``cache_slots``, an empty cache."""
+        stacked = None
+        if get_backend(self.default_backend).stacked:
+            stacked = self._stacked_for(snap, self.default_backend)
+            if stacked is None:
+                for s in range(snap.n_shards):
+                    self._shard_impl(snap, s, self.default_backend)
         return _ServiceState(
             snap, DeltaBuffer(snap.keys, capacity=self._delta_capacity),
             stacked)
+
+    def _stacked_for(self, snap: Snapshot, backend: str):
+        """``snap``'s fused impl on ``backend`` at this service's
+        configuration (cached by the snapshot; ``None``: the shards do not
+        unify)."""
+        return snap.stacked_impl(backend, block=self.block, probe=self.probe,
+                                 cache_slots=self.cache_slots)
+
+    def _shard_impl(self, snap: Snapshot, s: int, backend: str):
+        return snap.shard_impl(s, backend, block=self.block, probe=self.probe)
 
     # -- metadata -----------------------------------------------------------
     @property
@@ -303,6 +514,11 @@ class PlexService:
     @property
     def epoch(self) -> int:
         return self._state.snapshot.epoch
+
+    @property
+    def build_s(self) -> float:
+        """The snapshot's build time (a reopened one keeps its original)."""
+        return self._state.snapshot.build_s
 
     @property
     def fused(self) -> bool:
@@ -347,26 +563,75 @@ class PlexService:
         return self._live[2].copy()
 
     # -- lookups --------------------------------------------------------------
-    def lookup(self, q: np.ndarray) -> np.ndarray:
+    def lookup(self, q: np.ndarray, backend: str | None = None) -> np.ndarray:
         """Global first-occurrence index per query key in the *logical*
-        (snapshot plus delta) key array."""
+        (snapshot plus delta) key array.
+
+        Served through the fallback chain: the requested backend (the
+        service's by default) first, then — on a dispatch failure or an
+        open breaker — each configured fallback, all computing the
+        identical answer. A lookup fails only when the whole chain is
+        exhausted, as ``BackendUnavailableError``."""
+        backend = backend or self.default_backend
+        get_backend(backend)  # unknown names raise here, not as chain noise
         q = np.ascontiguousarray(q, dtype=np.uint64)
         if q.size == 0:
             return np.zeros(0, dtype=np.int64)
         if not METRICS.enabled:
-            return self._lookup(self._state, q)
+            return self._lookup_chain(q, backend)
         t0 = time.perf_counter()
-        out = self._lookup(self._state, q)
+        out = self._lookup_chain(q, backend)
         dur = time.perf_counter() - t0
         METRICS.histogram("serve.lookup_us").observe(dur * 1e6)
         METRICS.histogram("serve.lookup_ns_per_key").observe(
             dur * 1e9 / q.size)
         return out
 
-    def _lookup(self, state: _ServiceState, q: np.ndarray) -> np.ndarray:
-        if state.stacked is None:
-            return self._lookup_per_shard(state, q)
-        return self._stacked_lookup(state, q)
+    def _lookup_chain(self, q: np.ndarray, backend: str) -> np.ndarray:
+        """The fallback-chain walk behind ``lookup`` over one captured
+        state."""
+        state = self._state
+        chain = self._chain_for(backend)
+        last_err: BaseException | None = None
+        for b in chain:
+            br = self._breaker(b)
+            if not br.allow():
+                continue          # open breaker: skip the known-bad backend
+            try:
+                out = self._lookup(state, q, b)
+            except Exception as e:
+                self.stats.backend_failures += 1
+                self._note_error(e)
+                self._record_breaker(br, False, e)
+                last_err = e
+                log.warning("lookup: backend %r failed (%r)%s", b, e,
+                            "; falling back" if b != chain[-1] else "")
+                continue
+            self._record_breaker(br, True)
+            if b != backend:
+                self.stats.fallback_lookups += 1
+                log.warning("lookup: served by %r in place of %r", b,
+                            backend)
+            return out
+        raise BackendUnavailableError(chain, last_err) from last_err
+
+    def _lookup(self, state: _ServiceState, q: np.ndarray,
+                backend: str | None = None) -> np.ndarray:
+        """One backend's (the default one's) merged lookup over a captured
+        state: fused, per-shard, or on the host; identical results on every
+        path (the chain relies on that)."""
+        backend = backend or self.default_backend
+        snap = state.snapshot
+        if get_backend(backend).stacked:
+            st = (state.stacked if backend == self.default_backend
+                  else self._stacked_for(snap, backend))
+            if st is not None:
+                return self._stacked_lookup(state, q, st)
+            return self._lookup_per_shard(state, q, backend)
+        # a host backend has no built impl to instrument: its dispatch
+        # point fires here
+        fire(POINT_BACKEND_DISPATCH, backend=backend)
+        return self._lookup_host(state, q)
 
     def _upload(self, q: np.ndarray) -> torch.Tensor:
         """Biased device queries of the uint64 keys ``q``. On the card the
@@ -386,11 +651,11 @@ class PlexService:
         return None if state.delta.empty \
             else state.delta.device_view(self.device)
 
-    def _stacked_lookup(self, state: _ServiceState,
-                        q: np.ndarray) -> np.ndarray:
-        """Fused path: one upload, every micro-batch launched at once, one
-        sync at the end."""
-        st = state.stacked
+    def _stacked_lookup(self, state: _ServiceState, q: np.ndarray,
+                        st: StackedTorchPlex | None = None) -> np.ndarray:
+        """Fused path on ``st`` (default: the state's own fused impl): one
+        upload, every micro-batch launched at once, one sync at the end."""
+        st = state.stacked if st is None else st
         epoch = state.snapshot.epoch
         outs = st.dispatch(self._upload(q), self._delta_view(state))
         self.stats.inflight_batches += len(outs)
@@ -402,8 +667,8 @@ class PlexService:
             self._fold_impl_counters(st, epoch)
         return res.astype(np.int64)
 
-    def _lookup_per_shard(self, state: _ServiceState,
-                          q: np.ndarray) -> np.ndarray:
+    def _lookup_per_shard(self, state: _ServiceState, q: np.ndarray,
+                          backend: str) -> np.ndarray:
         """Per-shard path: queries grouped by shard on the host (one stable
         sort), one upload, each shard's slice through its single-shard impl
         (one launch per micro-batch, each after the first overlapping the
@@ -424,7 +689,7 @@ class PlexService:
         outs, start = [], 0
         for s, n in enumerate(counts):
             if n:
-                st = snap.shard_impl(s, block=self.block, probe=self.probe)
+                st = self._shard_impl(snap, s, backend)
                 outs += st.dispatch(qd[start:start + n], chained=bool(outs),
                                     counted=False)
             start += n
@@ -439,6 +704,141 @@ class PlexService:
         if not state.delta.empty:
             out += state.delta.adjust(q)
         return out
+
+    def _lookup_host(self, state: _ServiceState, q: np.ndarray) -> np.ndarray:
+        """Host path: each shard's ``PLEX.lookup`` over its routed queries,
+        the global offset and the delta adjustment folded in on the host
+        (no launch)."""
+        snap = state.snapshot
+        sid = snap.route(q)
+        if METRICS.enabled and METRICS.counted_dispatch:
+            self._fold_hotness(np.bincount(sid, minlength=snap.n_shards),
+                               np.zeros(N_PROBE_BUCKETS, np.int64),
+                               snap.epoch)
+        out = np.empty(q.size, dtype=np.int64)
+        for s in np.unique(sid):
+            mask = sid == s
+            out[mask] = snap.shards[s].lookup(q[mask]) + snap.offsets[s]
+        self.stats.note(q.size, 0, 0)
+        if not state.delta.empty:
+            out += state.delta.adjust(q)
+        return out
+
+    # -- resilience ---------------------------------------------------------
+    def _chain_for(self, backend: str) -> tuple[str, ...]:
+        """The fallback chain starting at ``backend``: the requested
+        backend, then each configured fallback that is registered.
+        ``"auto"`` degrades along cuda -> torch -> numpy from the requested
+        backend's position (a custom backend falls back to torch, then
+        numpy); a sequence is honoured in order; ``None`` disables
+        fallback."""
+        chain = self._chains.get(backend)
+        if chain is not None:
+            return chain
+        req = self._fallback_req
+        if req is None:
+            tail: tuple[str, ...] = ()
+        elif req == "auto":
+            start = _CHAIN_ORDER.index(backend) + 1 \
+                if backend in _CHAIN_ORDER else 1
+            tail = _CHAIN_ORDER[start:]
+        else:
+            tail = req
+        out = [backend]
+        for b in tail:
+            if b in out:
+                continue
+            try:
+                get_backend(b)
+            except ValueError:
+                continue
+            out.append(b)
+        chain = tuple(out)
+        self._chains[backend] = chain
+        return chain
+
+    def _breaker(self, backend: str) -> CircuitBreaker:
+        br = self._breakers.get(backend)
+        if br is None:
+            # setdefault keeps exactly one breaker under lock-free races
+            br = self._breakers.setdefault(backend, CircuitBreaker(
+                backend, failure_threshold=self.breaker_threshold,
+                cooldown_s=self.breaker_cooldown_s,
+                clock=self._breaker_clock))
+        return br
+
+    def _record_breaker(self, br: CircuitBreaker, ok: bool,
+                        error: BaseException | None = None) -> None:
+        if ok:
+            br.record_success()
+        else:
+            br.record_failure(error)
+        self.stats.breakers[br.name] = br.state
+
+    def _note_error(self, e: BaseException) -> None:
+        """Bounded error journal read by ``health()``. The first error of
+        the service's life stays first (a kernel library that failed to
+        build is the error to read first), the rest roll."""
+        with self._errors_lock:
+            if len(self._errors) >= _MAX_ERRORS:
+                del self._errors[1]
+            self._errors.append(f"{type(e).__name__}: {e}")
+
+    def health(self) -> dict:
+        """One JSON-friendly operational snapshot: what an operator (or a
+        chaos run) needs to tell *degraded* from *broken* — generation,
+        queue depth, WAL size, breaker states, recent errors. Lock-free;
+        safe to poll while serving."""
+        state = self._state
+        dur = self._dur
+        wal_bytes = 0
+        if dur is not None and not dur.wal.closed:
+            wal_bytes = dur.wal.size_bytes
+        breakers = {n: b.snapshot()
+                    for n, b in sorted(self._breakers.items())}
+        retry_in = max(0.0, self._merge_retry_at - time.monotonic()) \
+            if self._consec_merge_failures else 0.0
+        backlog = 0.0 if self._backlog_since is None \
+            else time.monotonic() - self._backlog_since
+        with self._errors_lock:
+            errors = list(self._errors)
+        worker = self._merge_worker
+        return {
+            "generation": self.generation,
+            "epoch": int(state.snapshot.epoch),
+            "n_keys": int(state.snapshot.n_keys + state.delta.net_keys),
+            "n_pending": int(state.delta.n_entries),
+            "routed_devices": 0,
+            "fallback_chain": list(self._chain),
+            "breakers": breakers,
+            "degraded": any(b["state"] != CLOSED for b in breakers.values())
+            or self._consec_merge_failures > 0,
+            "queue_depth": int(self._q_len),
+            "queue_limit": int(self.max_queue),
+            "inflight_batches": int(self.stats.inflight_batches),
+            "shed_queries": int(self.stats.shed_queries),
+            "backend_failures": int(self.stats.backend_failures),
+            "fallback_lookups": int(self.stats.fallback_lookups),
+            "merge_failures": int(self.stats.merge_failures),
+            "merge_retry_in_s": round(retry_in, 3),
+            "merge_backlog_s": round(backlog, 3),
+            "merge_mode": self.merge_mode,
+            "merge_worker_alive": worker is not None and worker.is_alive(),
+            "journal_ops": len(self._op_journal),
+            "wal_bytes": int(wal_bytes),
+            "last_errors": errors,
+            "armed_faults": FAULTS.active(),
+            "closed": self._closed,
+            "metrics": {
+                "enabled": bool(METRICS.enabled),
+                "shard_hotness": [int(x) for x in self._live[1]],
+                "probe_trips": [int(x) for x in self._live[2]],
+                "cache_hits": int(self.stats.cache_hits),
+                "cache_queries": int(self.stats.cache_queries),
+                "full_hit_batches": int(self.stats.full_hit_batches),
+                "registry": METRICS.snapshot(),
+            },
+        }
 
     def _note_synced(self, results: list[LaneResult], epoch: int) -> None:
         """Fold synced launches' cache telemetry into the stats (after the
@@ -487,7 +887,8 @@ class PlexService:
     # -- updates ------------------------------------------------------------
     def insert(self, keys: np.ndarray) -> int:
         """Buffer inserted keys (duplicates add logical occurrences). Drains
-        the queue first and merges once the delta reaches
+        the queue first; on a durable service the WAL record is appended
+        before the delta changes. Merges once the delta reaches
         ``merge_threshold``. Returns the number of keys buffered."""
         keys = np.asarray(keys, dtype=np.uint64).ravel()
         if keys.size == 0:
@@ -495,27 +896,54 @@ class PlexService:
         with self._lock:
             self.drain()
             state = self._state
+            if self._dur is not None:
+                # WAL before mutation: if the append raises, the delta is
+                # untouched and durable >= served still holds
+                self._dur.wal.append(OP_INSERT, keys)
             n = state.delta.insert(keys)
             self._journal_op("insert", keys)
             self.stats.inserts += n
+            self._maybe_rotate_wal(state)
             self._after_update(state)
             return n
 
     def delete(self, keys: np.ndarray) -> int:
         """Tombstone key values: every logical occurrence of each key
-        (snapshot and pending inserts) is removed. Drains the queue first.
-        Returns the number of occurrences removed."""
+        (snapshot and pending inserts) is removed. Drains the queue first
+        and appends the WAL record first, as ``insert``. Returns the number
+        of occurrences removed."""
         keys = np.asarray(keys, dtype=np.uint64).ravel()
         if keys.size == 0:
             return 0
         with self._lock:
             self.drain()
             state = self._state
+            if self._dur is not None:
+                self._dur.wal.append(OP_DELETE, keys)
             n = state.delta.delete(keys)
             self._journal_op("delete", keys)
             self.stats.deletes += n
+            self._maybe_rotate_wal(state)
             self._after_update(state)
             return n
+
+    def _maybe_rotate_wal(self, state: _ServiceState) -> None:
+        """Compact the durable WAL once it exceeds ``wal_rotate_bytes``
+        (lock held, after the delta mutation, so the seed ops include the
+        record just logged). Skipped when the compacted seed would not
+        shrink the segment to at most half its size, so a delta near the
+        threshold is not rewritten in full on every mutation."""
+        dur = self._dur
+        if dur is None or not 0 < self.wal_rotate_bytes <= dur.wal.size_bytes:
+            return
+        delta = state.delta
+        seed_est = 9 * 3 + 8 * (delta.n_inserts + delta.n_tombstones)
+        if seed_est * 2 > dur.wal.size_bytes:
+            return
+        ops = [(_WAL_OPS[name], op_keys)
+               for name, op_keys in delta.pending_ops()]
+        dur.wal = dur.wal.rotate(ops)
+        self.stats.wal_rotations += 1
 
     def _journal_op(self, opname: str, keys: np.ndarray) -> None:
         """Record one accepted mutation (lock held; background mode only):
@@ -592,7 +1020,10 @@ class PlexService:
         new_keys = state.delta.logical_keys(dstate)
         if new_keys.size == 0:
             return False      # a snapshot cannot be empty; keep buffering
+        dur = self._dur
+        new_gen = dur.generation + 1 if dur is not None else -1
         try:
+            fire(POINT_MERGE_BUILD)
             snap = Snapshot.build(
                 new_keys, self.eps, n_shards=self._n_shards_req,
                 device=self.device, epoch=state.snapshot.epoch + 1,
@@ -609,14 +1040,39 @@ class PlexService:
                 self._warm(new)
             if self._merge_stream is not None:
                 self._merge_stream.synchronize()
+            # durable phase 1: the snapshot write, still off the service
+            # lock. Nothing is live until the manifest rename of phase 2,
+            # so a crash here leaves a dead generation dir at worst.
+            if dur is not None:
+                try:
+                    save_snapshot(dur.root / gen_name(new_gen), snap,
+                                  fsync=dur.fsync)
+                except Exception:
+                    shutil.rmtree(dur.root / gen_name(new_gen),
+                                  ignore_errors=True)
+                    raise
         except Exception as e:
             raise self._arm_merge_backoff(e) from e
+        # the publish: drain the queue, durable phase 2 (a fresh WAL seeded
+        # with the residual and one manifest rename), then the swap
         with self._lock:
             self.drain()
-            for _, name, op_keys in self._op_journal:
+            residual = list(self._op_journal)
+            new_dur = None
+            if dur is not None:
+                try:
+                    new_dur = self._commit_generation(
+                        dur.root, new_gen, snap,
+                        [(name, op_keys) for _, name, op_keys in residual],
+                        dur.fsync, snapshot_saved=True)
+                except Exception as e:
+                    raise self._arm_merge_backoff(e) from e
+            for _, name, op_keys in residual:
                 getattr(new.delta, name)(op_keys)
             self._op_journal.clear()
             self._state = new
+            if new_dur is not None:
+                self._swap_durable(new_dur)
             self._consec_merge_failures = 0
             self._merge_retry_at = 0.0
             self._backlog_since = None
@@ -637,6 +1093,7 @@ class PlexService:
                       self.merge_backoff_s *
                       2.0 ** (self._consec_merge_failures - 1))
         self._merge_retry_at = time.monotonic() + backoff
+        self._note_error(e)
         log.warning("merge failed (attempt %d, retry in %.3fs): %r; live "
                     "state untouched", self._consec_merge_failures,
                     backoff, e)
@@ -672,6 +1129,7 @@ class PlexService:
                 if self._closed:
                     return
                 try:
+                    fire(POINT_MERGE_WORKER)
                     if self._consec_merge_failures and \
                             time.monotonic() < self._merge_retry_at:
                         continue
@@ -691,9 +1149,10 @@ class PlexService:
                     return
 
     def close(self) -> None:
-        """Drain outstanding work and stop the merge worker (an in-flight
-        merge finishes first). Idempotent; the service is a context
-        manager."""
+        """Drain outstanding work, stop the merge worker (an in-flight merge
+        finishes first: its durable commit needs the WAL) and release the
+        WAL handle (the directory stays openable). Idempotent; the service
+        is a context manager."""
         with self._lock:
             if self._closed:
                 return
@@ -705,6 +1164,205 @@ class PlexService:
         if worker is not None and worker.is_alive():
             self._merge_wakeup.set()
             worker.join()
+        with self._lock:
+            if self._dur is not None:
+                self._dur.wal.close()
+                self._dur = None
+
+    # -- durability ----------------------------------------------------------
+    @staticmethod
+    def _commit_generation(root: pathlib.Path, gen: int, snap: Snapshot,
+                           seed_ops, fsync: bool, *,
+                           snapshot_saved: bool = False) -> _DurableState:
+        """The durable commit, in one place: write generation ``gen``'s
+        snapshot (unless ``snapshot_saved``: a merge wrote it off the
+        lock), create its WAL seeded with ``seed_ops``
+        (``DeltaBuffer.pending_ops`` order), then publish with one atomic
+        manifest rename. Nothing is live until the rename; a caught failure
+        sweeps the partial generation away."""
+        wal = None
+        try:
+            if not snapshot_saved:
+                save_snapshot(root / gen_name(gen), snap, fsync=fsync)
+            wal = WriteAheadLog.create(root / wal_name(gen), fsync=fsync)
+            for opname, op_keys in seed_ops:
+                wal.append(_WAL_OPS[opname], op_keys)
+            write_manifest(root, Manifest.for_generation(gen), fsync=fsync)
+        except Exception:
+            if wal is not None:
+                wal.close()
+            shutil.rmtree(root / gen_name(gen), ignore_errors=True)
+            try:
+                (root / wal_name(gen)).unlink()
+            except OSError:
+                pass
+            raise
+        return _DurableState(root=root, generation=gen, wal=wal,
+                             fsync=fsync)
+
+    def _swap_durable(self, new_dur: _DurableState) -> None:
+        """Adopt a freshly committed generation (lock held): close the
+        previous WAL handle and collect superseded on-disk state."""
+        old = self._dur
+        self._dur = new_dur
+        if old is not None:
+            old.wal.close()
+        _gc_generations(new_dur.root, new_dur.generation,
+                        self.keep_generations)
+
+    def save(self, root, *, fsync: bool = True) -> pathlib.Path:
+        """Persist the current (snapshot, delta) state under ``root`` and
+        attach this service to it (durable mode): the snapshot as a new
+        numbered generation, its WAL seeded with the live delta (deletes
+        before inserts), the manifest published atomically. From here on
+        every ``insert``/``delete`` is WAL-logged before it is applied and
+        every merge commits a new generation; older ones are collected.
+        Each call commits a fresh generation."""
+        root = pathlib.Path(root)
+        root.mkdir(parents=True, exist_ok=True)
+        # serialised with merges (lock order _merge_mutex -> _lock): a
+        # background merge mid-rebuild targets the next generation too
+        with self._merge_mutex, self._lock:
+            self.drain()
+            state = self._state
+            man = read_manifest(root)
+            gen = man.generation + 1 if man is not None else 0
+            self._swap_durable(self._commit_generation(
+                root, gen, state.snapshot, state.delta.pending_ops(),
+                fsync))
+        return root
+
+    @classmethod
+    def open(cls, root, *, backend: str = "cuda", durable: bool = True,
+             fsync: bool = True, verify: bool = False, recover: bool = True,
+             device=None, **kw) -> "PlexService":
+        """Start a service from a persisted directory in load time.
+
+        Follows the manifest to the last committed generation, maps its
+        snapshot (no rebuild of any kind: the planes go to ``device`` with
+        the persisted statics), and replays the WAL's valid prefix into a
+        fresh delta; crash leftovers (uncommitted generation dirs, stray
+        WAL segments, torn WAL tails) are logged and discarded, a torn tail
+        truncated before the segment is reused. ``durable=True`` keeps the
+        service attached: updates append to the recovered WAL and merges
+        commit generations. ``load_s`` is the whole open's wall time.
+
+        Last-known-good recovery (``recover=True``): a corrupt manifest or
+        a committed generation that fails to open is moved to
+        ``root/quarantine/`` and the open falls back generation by
+        generation to the newest older one that opens (retained by serving
+        with ``keep_generations > 1``); a durable open then re-commits the
+        manifest there. ``NoServableGenerationError``: every candidate
+        failed; ``FileNotFoundError``: the directory was never published
+        to. ``recover=False`` fails fast instead."""
+        t0 = time.perf_counter()
+        root = pathlib.Path(root)
+        device = resolve_device(device)
+        last_err: BaseException | None = None
+        try:
+            man = read_manifest(root)
+        except CorruptManifestError as e:
+            if not recover:
+                raise
+            log.warning("open(%s): manifest corrupt (%s); falling back to "
+                        "the newest on-disk generation", root, e)
+            last_err = e
+            man = None
+        if man is None and last_err is None:
+            raise FileNotFoundError(f"no committed manifest under {root}")
+        gens = sorted((g for p in root.glob("gen-*")
+                       if p.is_dir() and (g := _gen_num(p)) is not None),
+                      reverse=True)
+        if man is not None:
+            for g in gens:
+                if g > man.generation:
+                    log.warning("open(%s): discarding uncommitted "
+                                "generation %s", root, gen_name(g))
+            candidates = [man.generation] + [g for g in gens
+                                             if g < man.generation]
+        else:
+            candidates = gens
+        for p in sorted(root.glob("wal-*.log")):
+            g = _gen_num(p)
+            if man is not None and (g is None or g > man.generation):
+                log.warning("open(%s): discarding stray WAL segment %s",
+                            root, p.name)
+        for p in sorted(root.glob("wal-*.log.rot")):
+            # a crash between rotate()'s temp write and its rename leaves
+            # this; the live segment is authoritative
+            log.warning("open(%s): removing leftover rotation temp %s",
+                        root, p.name)
+            try:
+                p.unlink()
+            except OSError:  # pragma: no cover
+                pass
+        snap = None
+        chosen = -1
+        for g in candidates:
+            gdir = root / gen_name(g)
+            try:
+                snap = load_snapshot(gdir, verify=verify, device=device)
+                chosen = g
+                break
+            except Exception as e:
+                if not recover:
+                    raise
+                last_err = e
+                log.warning("open(%s): generation %s failed validation "
+                            "(%r); quarantining and falling back", root,
+                            gen_name(g), e)
+                _quarantine(root, gdir, root / wal_name(g))
+        if snap is None:
+            raise NoServableGenerationError(root, last_err)
+        svc = cls(None, backend=backend, device=device, _snapshot=snap, **kw)
+        wal_path = root / wal_name(chosen)
+        records, valid, discarded = WriteAheadLog.replay(wal_path)
+        if discarded:
+            log.warning("open(%s): WAL %s: discarded %d trailing byte(s) "
+                        "past the last valid record", root, wal_path.name,
+                        discarded)
+        # consecutive same-op records coalesced: each delta mutation
+        # rebuilds the published state, so one op a run keeps recovery
+        # linear in the WAL's size
+        delta = svc._state.delta
+        for op, op_keys in _coalesce_ops(records):
+            if op == OP_INSERT:
+                delta.insert(op_keys)
+            else:
+                delta.delete(op_keys)
+        if durable:
+            if man is None or chosen != man.generation:
+                # recovery demoted the store to an older generation: commit
+                # the manifest there, so appends bind to what is served
+                write_manifest(root, Manifest.for_generation(chosen),
+                               fsync=fsync)
+            if wal_path.exists() and valid > 0:
+                # valid > 0: the magic verified; drop the torn tail (if
+                # any) and append after the good prefix
+                wal = WriteAheadLog.open(wal_path, fsync=fsync,
+                                         truncate_at=valid)
+            else:
+                # a missing segment or a bad magic: appending after a bad
+                # header would make every new record unrecoverable
+                log.warning("open(%s): WAL %s %s; starting a fresh segment",
+                            root, wal_path.name,
+                            "has an invalid header" if wal_path.exists()
+                            else "is missing")
+                wal = WriteAheadLog.create(wal_path, fsync=fsync)
+            svc._dur = _DurableState(root=root, generation=chosen, wal=wal,
+                                     fsync=fsync)
+        svc.load_s = time.perf_counter() - t0
+        return svc
+
+    @property
+    def durable(self) -> bool:
+        """Whether the service is attached to a persisted directory."""
+        return self._dur is not None
+
+    @property
+    def generation(self) -> int:
+        """The committed durable generation (-1 in memory only)."""
+        return self._dur.generation if self._dur is not None else -1
 
     def __enter__(self) -> "PlexService":
         return self
@@ -786,11 +1444,10 @@ class PlexService:
                 self._arm_timer(self.max_delay_s - age)
                 return
             try:
-                self._flush_partial(self._state.stacked)
+                self._flush_queue()
                 self._drain_outstanding()
             except Exception:
-                log.exception("deadline flush failed; the error is parked "
-                              "on its tickets")
+                log.exception("deadline flush failed")
 
     def _take_block(self, want: int) -> tuple[np.ndarray, list, int]:
         """Pop up to ``want`` queued queries into a fresh block (fresh: a
@@ -816,17 +1473,49 @@ class PlexService:
         self._q_len -= filled
         return buf[:filled], pieces, filled
 
-    @staticmethod
-    def _fail_pieces(pieces: list, err: BaseException) -> None:
-        """Park ``err`` on every ticket with lanes in a failed block, so
-        none waits for them."""
-        for ticket, _, _, cnt in pieces:
-            ticket._error = err
+    def _queue_failed(self, e: BaseException) -> None:
+        """Account one failed queue block of the default backend."""
+        self.stats.backend_failures += 1
+        self._note_error(e)
+        self._record_breaker(self._breaker(self.default_backend), False, e)
+        log.warning("queue: backend %r failed (%r); answering the block "
+                    "through the fallback chain", self.default_backend, e)
+
+    def _fill_pieces_fallback(self, buf: np.ndarray, pieces: list) -> None:
+        """Answer one failed queue block synchronously through ``lookup``'s
+        fallback chain and fill its ticket pieces; when the chain is
+        exhausted the error parks on each ticket (raised by ``result()``:
+        never a hang, never a partial result)."""
+        try:
+            out = self.lookup(buf)
+        except Exception as e:
+            for ticket, _, _, cnt in pieces:
+                ticket._error = e
+                ticket._filled += cnt
+            return
+        for ticket, src, dst, cnt in pieces:
+            ticket._out[dst:dst + cnt] = out[src:src + cnt]
             ticket._filled += cnt
+
+    def _fill_queue_sync(self) -> None:
+        """Answer every queued chunk synchronously through the fallback
+        chain (lock held): the default backend has no fused impl to queue
+        on. Chain-exhausted failures park on the tickets."""
+        while self._q_chunks:
+            ticket, arr, consumed, _ = self._q_chunks.popleft()
+            rest = arr[consumed:]
+            self._q_len -= rest.size
+            ticket._queued -= rest.size
+            try:
+                ticket._out[consumed:] = self.lookup(rest)
+            except Exception as e:
+                ticket._error = e
+            ticket._filled += rest.size
 
     def _dispatch_queue_block(self, st: StackedTorchPlex, buf: np.ndarray,
                               pieces: list, filled: int) -> None:
-        """Launch one queue block (one K1 launch) and record its event."""
+        """Launch one queue block (one launch) and record its event; a
+        failed launch answers the block through the fallback chain."""
         try:
             res = st.lookup_planes(self._upload(buf), n_valid=filled,
                                    delta=self._delta_view(self._state))
@@ -835,11 +1524,12 @@ class PlexService:
                 ev = torch.cuda.Event()
                 ev.record(torch.cuda.current_stream(self.device))
         except Exception as e:
-            self._fail_pieces(pieces, e)
-            raise
+            self._queue_failed(e)
+            self._fill_pieces_fallback(buf, pieces)
+            return
         for ticket, _, _, _ in pieces:
             ticket._events.append(ev)
-        self._outstanding.append((res, pieces, self.stats.epoch, ev))
+        self._outstanding.append((res, buf, pieces, self.stats.epoch, ev))
         self.stats.inflight_batches += 1
         self.stats.note(0, 1, 0)
 
@@ -852,13 +1542,22 @@ class PlexService:
         if self._q_len:
             self._dispatch_queue_block(st, *self._take_block(self._q_len))
 
+    def _flush_queue(self) -> None:
+        """Launch the queued remainder on the current state's fused impl,
+        or answer it synchronously when there is none (lock held)."""
+        st = self._state.stacked
+        if st is None:
+            self._fill_queue_sync()
+        else:
+            self._flush_partial(st)
+
     def _drain_outstanding(self, deadline: float | None = None) -> None:
         """Wait for every launched queue block (its event), copy it back and
         fill its tickets (lock held). ``deadline`` bounds the waits: on
         expiry ``TimeoutError`` propagates with the remaining blocks left
         outstanding."""
         while self._outstanding:
-            res, pieces, epoch, ev = self._outstanding[0]
+            res, buf, pieces, epoch, ev = self._outstanding[0]
             while ev is not None and not ev.query():
                 if deadline is not None and time.monotonic() > deadline:
                     raise TimeoutError(
@@ -873,9 +1572,10 @@ class PlexService:
                 arr = res.out.cpu().numpy()
                 self._note_synced([res], epoch)
             except Exception as e:
-                self._fail_pieces(pieces, e)
+                self._queue_failed(e)
+                self._fill_pieces_fallback(buf, pieces)
                 self.stats.note_drained(1)
-                raise
+                continue
             for ticket, src, dst, cnt in pieces:
                 ticket._out[dst:dst + cnt] = arr[src:src + cnt]
                 ticket._filled += cnt
@@ -902,40 +1602,73 @@ class PlexService:
         try:
             self._cancel_timer()
             if self._q_len:
-                # queued chunks exist only while the state is fused: a
-                # publish drains the queue before it swaps the state
-                self._flush_partial(self._state.stacked)
+                self._flush_queue()
             self._drain_outstanding(deadline)
         finally:
             self._lock.release()
 
-    # -- warm-up ------------------------------------------------------------
-    def _warm(self, state: _ServiceState) -> None:
-        """Launch once each K1 variant serving ``state`` can take: on the
-        fused path uncounted (cached, with ``cache_slots``) and counted,
-        each delta-free and merged at the delta capacity (a zero-weight
-        entry, which changes no result); on the per-shard path every
-        shard's impl, delta-free (its delta folds on the host). Not served
-        traffic: no stats, and the warm counts are discarded."""
+    # -- warm-up and measurement ----------------------------------------------
+    def _warm(self, state: _ServiceState, backend: str | None = None) -> None:
+        """Launch once each variant ``backend`` (the default one by default)
+        serving ``state`` can take: on the fused path uncounted (cached,
+        with ``cache_slots``) and counted, each delta-free and merged at the
+        delta capacity (a zero-weight entry, which changes no result); on
+        the per-shard path every shard's impl, delta-free (its delta folds
+        on the host). Not served traffic: no stats, and the warm counts are
+        discarded."""
+        backend = backend or self.default_backend
         snap = state.snapshot
         q = torch.from_numpy(to_biased(snap.keys[:1])).to(self.device)
-        if state.stacked is None:
+        st = (state.stacked if backend == self.default_backend
+              else self._stacked_for(snap, backend))
+        if st is None:
             for s in range(snap.n_shards):
-                snap.shard_impl(s, block=self.block, probe=self.probe) \
-                    .lookup_planes(q, counted=False)
+                self._shard_impl(snap, s, backend).lookup_planes(
+                    q, counted=False)
             return
         dummy = build_delta_planes(snap.keys[:1], np.zeros(1, np.int64),
                                    self._delta_capacity, self.device)
         for delta in (None, dummy):
             for counted in (False, True):
-                state.stacked.lookup_planes(q, delta=delta, counted=counted)
-        state.stacked.take_counters()
+                st.lookup_planes(q, delta=delta, counted=counted)
+        st.take_counters()
 
-    def warmup(self) -> None:
-        """Build the kernel library and launch each K1 variant this epoch's
-        serving takes once, so the first served request pays no build and
-        no first launch."""
-        with self._on_device():
-            self._warm(self._state)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+    def warmup(self, backend: str | None = None) -> None:
+        """Build ``backend``'s impls (the kernel library on the card) and
+        launch each variant this epoch's serving takes once, so the first
+        served request pays no build and no first launch. A failure of the
+        service's own backend (a kernel library that does not build) is
+        noted in ``health()`` and raised: no chain covers it up here.
+        Another backend's is noted, logged and left cold."""
+        backend = backend or self.default_backend
+        try:
+            if not get_backend(backend).stacked:
+                return
+            with self._on_device():
+                self._warm(self._state, backend)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        except Exception as e:
+            self._note_error(e)
+            if backend == self.default_backend:
+                raise
+            log.warning("warmup: backend %r failed (%r); left cold", backend,
+                        e)
+
+    def throughput(self, q: np.ndarray, backends: Sequence[str] | None = None,
+                   repeats: int = 3) -> dict[str, float]:
+        """Best-of-``repeats`` ns per lookup for each backend (every
+        registered one by default), each warmed first. ``lookup`` ends in
+        the copy back to the host, so the timed region covers the device
+        work."""
+        report: dict[str, float] = {}
+        for backend in backends if backends is not None else backend_names():
+            self.warmup(backend)
+            best = float("inf")
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                self.lookup(q, backend=backend)
+                self.drain()
+                best = min(best, time.perf_counter() - t0)
+            report[backend] = best / q.size * 1e9
+        return report

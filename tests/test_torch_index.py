@@ -188,7 +188,7 @@ def test_plex_from_arrays_carries_reference_index(kind):
 def test_learned_index_surfaces():
     keys = generate("osm", 20_000, 0)
     idx = LearnedIndex.build(keys.copy(), 32, block=256, device="cpu")
-    assert set(BACKENDS) == {"cuda", "numpy"}
+    assert set(BACKENDS) == {"cuda", "torch", "numpy"}
     assert idx.device == torch.device("cpu")
     assert idx.backend_impl("numpy") is idx.plex
     assert idx.backend_impl() is idx.backend_impl("cuda")
