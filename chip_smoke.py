@@ -17,25 +17,32 @@ card, then drives the port's three paths:
   after inserts and deletes, and a merge; each request's launches replayed
   as served (the overlap of programmatic dependent launch included), with
   one summary level against two and overlap against none, and K4 on the
-  200M-key plane, one level against two;
+  200M-key plane, one level against two; the same 200M keys built again
+  by the process-pool build (``Snapshot.build(workers=)``, spawned workers,
+  none holding a CUDA context) and held bit for bit to the serial build;
 * the serving front end: a fused, cached service over 200M keys of an SOSD
   dataset whose shards unify, on Zipf(1.2) traffic: requests with the
   cache cold and warm, counted (live hotness and the probe histogram),
   with a live delta, and with the cache off (``serve_cache``); 64 tickets
-  through ``submit`` filled by the deadline timer (``serve_queue``); a
+  through ``submit`` filled by the deadline timer (``serve_queue``); the
+  same service observed: requests with observability off, disarmed,
+  counting and under the armed flight recorder with an SLO watchdog, in
+  turns (launch counts, the reference's overhead budgets, the span split
+  of a request's host time beside K1's device time; ``observe``); a
   background-merging service taking rounds of inserts and deletes while
   it answers lookups (``merge_background``);
 * durable, fault-tolerant serving: that cached service saved with fsync,
   updated through its WAL, dropped with a torn WAL record, reopened by
-  ``PlexService.open`` and serving through K1, then a durable merge
-  (``durable``); a 2M-key service that asked for the fallback chain, with
+  ``PlexService.open`` and serving through K1, then a durable merge over
+  the process pool, all traced (``durable``); a 2M-key service that asked for the fallback chain, with
   ``backend.dispatch`` failing for ``cuda`` (``fail_n(3)``, ``always()``,
   ``intermittent(0.3)``), answered through the chain by the ``torch``
   backend on the card, the breaker's states on an injected clock, K1 back
   after the faults clear; a service left at its default fallback raising
   rather than serving when K1's dispatch fails or its library does not
   load; ``open`` falling back to the last known good generation and a
-  merge whose build fails (``chaos``);
+  merge whose build fails, with an incident manager writing a bundle for
+  each kind and the breaker's transitions traced (``chaos``);
 * the per-index path (K2/K3 fused with K4 in one launch): ``LearnedIndex.
   lookup`` over 2^24 keys of each SOSD dataset (the most one index's float32
   rank plane holds), K2/K3 alone, K4 alone and the fused launch each held
@@ -72,6 +79,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -113,6 +121,13 @@ WAL_TIMED_APPENDS = 4096
 # the key count, and the smaller build and merges keep the phase short
 CHAOS_KEYS = 2_000_000
 CHAOS_REQUESTS = 4
+# the observe phase: requests served in each of its four modes, in turns
+# (a request's host time varies by a fifth from one to the next, so the
+# recorder's budget is held on the median of the turns' paired ratios)
+OBSERVE_TURNS = 32
+# process-pool workers of the 200M-key builds and the durable merge (one a
+# core of the card's host, at most one a shard)
+BUILD_WORKERS = min(os.cpu_count() or 1, 24)
 # HBM rate of one H100 SXM (NVIDIA's data sheet, at 700 W): the bound's
 # denominator; the measured copy rate is printed beside it
 PEAK_HBM_TBS = 3.35
@@ -132,6 +147,17 @@ def make_queries(keys: np.ndarray, n: int, rng) -> np.ndarray:
     q = np.concatenate([present, absent,
                         np.asarray([0, U64_MAX], np.uint64)])
     return q[rng.permutation(q.size)]
+
+
+def exact_ranks(keys: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """``np.searchsorted(keys, q, "left")``, searched in the queries'
+    sorted order: the same answers, but numpy keeps each answer as the next
+    search's lower bound, so ascending queries stay in cache (several times
+    faster over 200M keys, where the checks of a run would take minutes)."""
+    order = np.argsort(q, kind="stable")
+    out = np.empty(q.size, dtype=np.int64)
+    out[order] = np.searchsorted(keys, q[order], "left")
+    return out
 
 
 def device_ms(fn, device, reps: int = 5) -> float:
@@ -634,7 +660,7 @@ def bound_bytes(snap, q: np.ndarray) -> int:
     request's data. Layer cells, shard minima and delta keys are left out,
     so the count errs low."""
     sid = snap.route(q)
-    rank = np.searchsorted(snap.keys, q, "left")
+    rank = exact_ranks(snap.keys, q)
     ends = np.append(snap.offsets[1:], snap.n_keys)
     sectors = 0
     for s in np.unique(sid):
@@ -702,6 +728,114 @@ def probe_levels_on_plane(dk, q_np: np.ndarray, device) -> dict:
     return out
 
 
+def cuda_context_pids() -> set | None:
+    """Pids ``nvidia-smi`` lists as holding a CUDA context (``None`` when
+    it gives no answer)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def child_pids(pid: int) -> set:
+    """Live processes whose parent is ``pid`` (read from ``/proc``)."""
+    out = set()
+    for p in pathlib.Path("/proc").iterdir():
+        if not p.name.isdigit():
+            continue
+        try:
+            stat = (p / "stat").read_text()
+        except OSError:
+            continue
+        # the fields after the parenthesised command: state, ppid, ...
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.add(int(p.name))
+    return out
+
+
+class watch_workers:
+    """While the block runs, a thread samples every 0.2 s this
+    process's children and the pids ``nvidia-smi`` lists with a CUDA
+    context (``children``, ``cuda_pids``; ``cuda_pids`` is ``None`` if
+    ``nvidia-smi`` never answered)."""
+
+    def __enter__(self):
+        import threading
+        self.children, self.cuda_pids, self.samples = set(), None, 0
+        self._stop = threading.Event()
+
+        def run():
+            while True:
+                self.children |= child_pids(os.getpid())
+                pids = cuda_context_pids()
+                if pids is not None:
+                    self.cuda_pids = (self.cuda_pids or set()) | pids
+                self.samples += 1
+                if self._stop.wait(0.2):
+                    return
+        self._t = threading.Thread(target=run, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+
+
+def parallel_build_check(device, keys: np.ndarray, snap) -> dict:
+    """``keys`` built again by ``Snapshot.build(workers=BUILD_WORKERS)``
+    (the start method the rule picks: spawn, since this process holds a
+    CUDA context) and held to the serial ``snap``: offsets, every shard's
+    spline, layer plane, tuning and persisted statics bit-identical. No
+    worker may hold a CUDA context: none of the workers' pids is in
+    ``nvidia-smi``'s compute apps while they run (and each task checks its
+    own process after its build)."""
+    from repro_torch.core import Snapshot
+    from repro_torch.core.parallel_build import _mp_context
+    from repro_torch.persist.format import _shard_meta
+    method = _mp_context().get_start_method()
+    with watch_workers() as w:
+        t0 = time.perf_counter()
+        par = Snapshot.build(keys, snap.eps, n_shards=snap.n_shards,
+                             device=device, workers=BUILD_WORKERS)
+        par_s = time.perf_counter() - t0
+    check(np.array_equal(par.offsets, snap.offsets)
+          and par.n_shards == snap.n_shards,
+          "parallel build: the shard offsets differ from the serial build")
+    for s, (a, b) in enumerate(zip(par.shards, snap.shards)):
+        la = a.layer.table if hasattr(a.layer, "table") else a.layer.cells
+        lb = b.layer.table if hasattr(b.layer, "table") else b.layer.cells
+        check(_shard_meta(a) == _shard_meta(b)
+              and np.array_equal(a.spline.keys, b.spline.keys)
+              and np.array_equal(a.spline.positions, b.spline.positions)
+              and np.array_equal(la, lb),
+              f"parallel build: shard {s} differs from the serial build")
+    workers = w.children - {os.getpid()}
+    listed = w.cuda_pids or set()
+    check(workers or snap.n_shards == 1,
+          "parallel build: no worker process was seen")
+    check(not workers & listed,
+          f"parallel build: workers {sorted(workers & listed)} hold a CUDA "
+          f"context")
+    del par
+    out = dict(keys=int(keys.size), shards=snap.n_shards,
+               workers=BUILD_WORKERS, cpu_count=os.cpu_count(),
+               start_method=method, parallel_build_s=par_s,
+               serial_build_s=snap.build_s,
+               speedup=snap.build_s / par_s, bit_identical=True,
+               worker_pids_seen=len(workers), samples=w.samples,
+               cuda_context_pids=None if w.cuda_pids is None
+               else sorted(w.cuda_pids),
+               parent_listed=os.getpid() in listed,
+               workers_with_cuda_context=0)
+    emit("parallel_build", **out)
+    return out
+
+
 def phase_serve(device, seed: int, n_keys: int, n_queries: int) -> dict:
     import torch
     from repro_torch.data import generate
@@ -726,6 +860,7 @@ def phase_serve(device, seed: int, n_keys: int, n_queries: int) -> dict:
          layer_kinds=_kinds(snap), block=BLOCK,
          max_memory_allocated=(torch.cuda.max_memory_allocated(device)
                                if device.type == "cuda" else None))
+    par_build = parallel_build_check(device, keys, snap)
 
     requests = [("lookup", make_queries(keys, n_queries, rng))
                 for _ in range(REQUESTS)]
@@ -782,7 +917,8 @@ def phase_serve(device, seed: int, n_keys: int, n_queries: int) -> dict:
                kernel_share_of_request=sum(r["kernel_ms"] for r in records)
                / (request_s * 1e3),
                path="fused" if svc.fused else "per-shard",
-               overlapped_launches=sum(r["overlapped"] for r in records))
+               overlapped_launches=sum(r["overlapped"] for r in records),
+               parallel_build=par_build)
     if device.type == "cuda":
         out.update(
             summary_levels=records[0]["summary_levels"],
@@ -831,7 +967,7 @@ def _serve_request(svc, what, i, q, logical):
         t0 = time.perf_counter()
         got = svc.lookup(q)
         req_s = time.perf_counter() - t0
-    want = np.searchsorted(logical, q, "left")
+    want = exact_ranks(logical, q)
     if not np.array_equal(got, want):
         bad = np.flatnonzero(got != want)
         raise AssertionError(f"{what} request {i}: {bad.size} of {q.size} "
@@ -904,7 +1040,8 @@ def zipf_queries(keys: np.ndarray, n: int, *, theta: float = 1.2,
 
 def cache_service(device, seed: int, n_keys: int):
     """A fused ``PlexService`` (eps 64, ``block`` 65,536, ``CACHE_SLOTS``
-    slots, ``QUEUE_MAX_DELAY_S``) over ``n_keys`` keys of the first SOSD
+    slots, ``QUEUE_MAX_DELAY_S``, built over ``BUILD_WORKERS`` processes)
+    over ``n_keys`` keys of the first SOSD
     dataset whose shards all unify: ``osm``, then ``wiki``, then ``amzn``
     at halved sizes (a ``reduced`` line for the cut). Returns (dataset,
     keys, service)."""
@@ -919,14 +1056,15 @@ def cache_service(device, seed: int, n_keys: int):
         gen_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         svc = PlexService(keys, eps=64, block=BLOCK, cache_slots=CACHE_SLOTS,
-                          max_delay_s=QUEUE_MAX_DELAY_S, device=device)
+                          max_delay_s=QUEUE_MAX_DELAY_S,
+                          build_workers=BUILD_WORKERS, device=device)
         ctor_s = time.perf_counter() - t0
         snap = svc.snapshot
         emit("serve_cache_setup", dataset=name, keys=n, generate_s=gen_s,
              build_s=snap.build_s, planes_upload_s=ctor_s - snap.build_s,
              shards=snap.n_shards, layer_kinds=_kinds(snap),
              path="fused" if svc.fused else "per-shard", block=BLOCK,
-             cache_slots=CACHE_SLOTS)
+             cache_slots=CACHE_SLOTS, build_workers=BUILD_WORKERS)
         if svc.fused:
             if n < n_keys:
                 emit("reduced", cache_service_keys=n, of=n_keys,
@@ -1030,7 +1168,7 @@ def phase_serve_cache(device, seed: int, n_keys: int, n_queries: int):
             t0 = time.perf_counter()
             got = svc.lookup(q)
             req_s = time.perf_counter() - t0
-        want = np.searchsorted(logical, q, "left")
+        want = exact_ranks(logical, q)
         check(np.array_equal(got, want),
               f"serve_cache {what} request {i}: "
               f"{int(np.count_nonzero(got != want))} of {q.size} ranks "
@@ -1140,7 +1278,7 @@ def phase_serve_queue(device, seed: int, svc, logical) -> dict:
     check(by_timer, "serve_queue: the deadline timer left tickets unfilled")
     for i, (t, q) in enumerate(zip(tickets, qs)):
         got = t.result()
-        check(np.array_equal(got, np.searchsorted(logical, q, "left")),
+        check(np.array_equal(got, exact_ranks(logical, q)),
               f"serve_queue: ticket {i} of {q.size} differs from "
               f"searchsorted")
     check(svc.stats.inflight_batches == 0,
@@ -1160,6 +1298,253 @@ def phase_serve_queue(device, seed: int, svc, logical) -> dict:
                inflight_after_drain=svc.stats.inflight_batches,
                matches_searchsorted=True)
     emit("serve_queue", **out)
+    return out
+
+
+# ------------------------------------------------------------- observe ----
+
+OBSERVE_MODES = ("off", "disarmed", "counted", "recorder")
+SERVE_SPANS = ("serve.lookup", "serve.staging", "serve.dispatch",
+               "serve.sync")
+
+
+def prometheus_families(text: str) -> dict:
+    """The exposition text's families (``# TYPE`` name -> type), every
+    sample line checked to parse as ``name[{labels}] value`` and to belong
+    to a declared family."""
+    fams: dict = {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            _, _, fam, typ = line.split(" ")
+            check(fam not in fams, f"prometheus: duplicate TYPE {fam}")
+            fams[fam] = typ
+            continue
+        metric, value = line.rsplit(" ", 1)
+        float(value)
+        name = metric.partition("{")[0]
+        base = next((name[:-len(s)] for s in ("_bucket", "_sum", "_count")
+                     if name.endswith(s) and fams.get(name[:-len(s)])
+                     == "histogram"), name)
+        check(base in fams, f"prometheus: sample outside a family: {line}")
+    return fams
+
+
+def phase_observe(device, seed: int, svc, logical, n_queries: int) -> dict:
+    """Observability on the cached service of ``serve_cache`` (its live
+    delta included): ``OBSERVE_TURNS`` requests of ``n_queries`` Zipf
+    queries, each served in four modes in a turn (the order rotating from
+    turn to turn): obs off; the hooks present
+    but disarmed (an SLO watchdog attached, its recorder probe registered,
+    the recorder disarmed); ``enable_observability()`` (K1's counted
+    variant, full-fidelity spans); ``RECORDER.arm(span_sample=8)`` with
+    ``watch_service`` (K1's uncounted, cached variant, sampled spans, the
+    sampler thread running). Every rank equals searchsorted; each request
+    makes the obs-off request's K1 launches and overlapped launches; the
+    counted variant runs only while counting is on; the live hotness grows
+    by ``bincount(route(q))`` of the counted requests; the reference's
+    budgets hold: the disabled hooks' cost under 2% of the best obs-off
+    lookup, the armed recorder within 10% of obs off (the median over the
+    turns of the recorder's request time over obs off's in the same turn,
+    as the drill holds it: the best of each mode is the tail of a spread
+    wider than the budget, and two modes that do the same work differ
+    there by 5%), every sampler tick under 10% of its interval; the
+    Prometheus text parses and
+    ``health()["slo"]`` is present. The serve spans' host times are printed
+    beside K1's device time for the same request (its launches replayed as
+    served), the first split of a request's host time on the card."""
+    import tempfile
+    from repro_torch.kernels import stacked_lookup as SL
+    from repro_torch.launch import observe as OBS
+    from repro_torch.obs import (METRICS, RECORDER, TRACE,
+                                 disable_observability, enable_observability,
+                                 watch_service)
+    from repro_torch.obs.export import prometheus_text, write_jsonl
+    from repro_torch.obs.slo import SLOWatchdog, default_slos
+    qs = np.split(zipf_queries(logical, OBSERVE_TURNS * n_queries,
+                               theta=ZIPF_THETA, seed=seed + 11),
+                  OBSERVE_TURNS)
+    wants = [exact_ranks(logical, q) for q in qs]
+    svc.warmup()
+    TRACE.clear()
+    METRICS.reset()
+    # the SLO watchdog rides the recorder's sampler (the reference's
+    # default objectives, reported, not asserted on the card)
+    wd = SLOWatchdog(default_slos())
+    hot0 = svc.live_hotness()
+    counted_q = []
+    rows = {m: [] for m in OBSERVE_MODES}
+    served = {}                # mode -> its first request's recorded calls
+    spans = {m: [] for m in OBSERVE_MODES}
+    tick_frac = 0.0
+    # no collector pause inside a timed request, in any mode
+    gc.collect()
+    gc.disable()
+    # ---- the main path: counts at 0 just before, read just after
+    SL.launches = 0
+    b0 = svc.stats.batches
+    for turn, (q, want) in enumerate(zip(qs, wants)):
+        # an untimed request first, so every timed mode meets the same warm
+        # cache (the counted variant bypasses the cache and warms nothing:
+        # by the rotation alone, the mode after it would serve cold)
+        check(np.array_equal(svc.lookup(q), want),
+              f"observe warm-up turn {turn}: ranks differ from searchsorted")
+        # the order rotates each turn, so no mode always goes first
+        k = turn % len(OBSERVE_MODES)
+        for mode in OBSERVE_MODES[k:] + OBSERVE_MODES[:k]:
+            watched = mode in ("disarmed", "recorder")
+            if watched:
+                watch_service(svc, watchdog=wd)
+            if mode == "counted":
+                enable_observability()
+            elif mode == "recorder":
+                RECORDER.arm(interval_s=0.25, span_sample=OBS.SPAN_SAMPLE)
+            n_ev = len(TRACE.events())
+            l0 = SL.launches
+            with recorded_launches() as rec:
+                t0 = time.perf_counter()
+                got = svc.lookup(q)
+                req_s = time.perf_counter() - t0
+            launches = SL.launches - l0
+            if mode == "recorder":
+                RECORDER.tick()
+                tick_frac = max(tick_frac,
+                                RECORDER.last_tick_s / RECORDER.interval_s)
+                check("slo" in svc.health(),
+                      "observe: health() has no slo section")
+                RECORDER.disarm()
+            elif mode == "counted":
+                disable_observability()
+                counted_q.append(q)
+            spans[mode] += TRACE.events()[n_ev:]
+            if watched:
+                # the probe watch_service registered (the last one)
+                RECORDER.remove_probe(RECORDER._probes[-1])
+                svc.attach_slo(None)
+            check(np.array_equal(got, want),
+                  f"observe {mode} turn {turn}: "
+                  f"{int(np.count_nonzero(got != want))} ranks differ "
+                  f"from searchsorted")
+            kw = [c[5] for c in rec.calls]
+            if device.type == "cuda":
+                check(launches == len(rec.calls),
+                      f"observe {mode} turn {turn}: {launches} K1 launches "
+                      f"for {len(rec.calls)} calls")
+            rows[mode].append(dict(
+                request_ms=req_s * 1e3, launches=len(rec.calls),
+                overlapped=sum(c[4] for c in rec.calls),
+                counted=sum(k.get("counters") is not None for k in kw),
+                cached=sum(k.get("cache") is not None for k in kw)))
+            served.setdefault(mode, rec.calls)
+    main_launches = SL.launches
+    main_batches = svc.stats.batches - b0
+    # ---- end of the main path
+    gc.enable()
+    check(not METRICS.enabled and not TRACE.enabled and
+          METRICS.counted_dispatch and not RECORDER.armed,
+          "observe: observability left armed")
+    if device.type == "cuda":
+        check(0 < main_launches == main_batches,
+              f"observe: {main_launches} K1 launches for {main_batches} "
+              f"micro-batches")
+    off = rows["off"][0]
+    for mode, rs in rows.items():
+        for turn, r in enumerate(rs):
+            check((r["launches"], r["overlapped"]) ==
+                  (off["launches"], off["overlapped"]),
+                  f"observe {mode} turn {turn}: {r['launches']} launches, "
+                  f"{r['overlapped']} overlapped; obs off made "
+                  f"{off['launches']}, {off['overlapped']}")
+            want_counted = r["launches"] if mode == "counted" else 0
+            check(r["counted"] == want_counted,
+                  f"observe {mode} turn {turn}: {r['counted']} counted "
+                  f"launches of {r['launches']}")
+    hot = np.bincount(svc.route(np.concatenate(counted_q)),
+                      minlength=svc.n_shards)
+    check(np.array_equal(svc.live_hotness() - hot0, hot),
+          "observe: live_hotness() grew by other than bincount(route(q)) "
+          "of the counted requests")
+    names = {e["name"] for e in spans["counted"]}
+    check(set(SERVE_SPANS) <= names,
+          f"observe: the counted requests' spans {sorted(names)} miss "
+          f"some of {SERVE_SPANS}")
+    check(not spans["off"] and not spans["disarmed"],
+          "observe: spans recorded with observability off")
+    best = {m: min(r["request_ms"] for r in rs) for m, rs in rows.items()}
+    lookups_per_s = {m: n_queries / (best[m] / 1e3) for m in best}
+    # each mode's request times (ms: min, quartiles, max), printed before
+    # the budgets are held to them
+    spread = {m: [float(x) for x in np.percentile(
+        [r["request_ms"] for r in rs], (0, 25, 50, 75, 100))]
+        for m, rs in rows.items()}
+    emit("observe_requests", request_ms_min_q1_median_q3_max=spread)
+    # the reference's disabled-hook budget: the hook sites' measured cost
+    # over a micro-batch against the obs-off time of one lookup
+    hook_ns = OBS.measure_disabled_hook_ns()
+    ns_off = best["off"] * 1e6 / n_queries
+    hook_frac = OBS.HOOKS_PER_LOOKUP * hook_ns / svc.block / ns_off
+    # each turn's armed request over the same turn's obs-off request
+    paired = [r["request_ms"] / o["request_ms"]
+              for r, o in zip(rows["recorder"], rows["off"])]
+    recorder_ratio = float(np.median(paired))
+    check(hook_frac < OBS.OVERHEAD_BUDGET,
+          f"observe: disabled hooks cost {hook_frac:.4%} of a lookup")
+    check(recorder_ratio < 1 + OBS.RECORDER_OVERHEAD_BUDGET,
+          f"observe: the armed recorder takes {recorder_ratio:.3f}x obs off "
+          f"(the median of {len(paired)} turns' paired ratios)")
+    check(tick_frac < OBS.TICK_DUTY_BUDGET,
+          f"observe: a sampler tick takes {tick_frac:.2%} of its interval")
+    fams = prometheus_families(prometheus_text())
+    with tempfile.TemporaryDirectory(prefix="plex-observe-") as tmp:
+        path = write_jsonl(pathlib.Path(tmp) / "events.jsonl")
+        lines = path.read_text().splitlines()
+        jsonl_events = len(lines) - 1
+        for line in lines:
+            json.loads(line)
+    # each serve span's host time beside K1's device time for the request
+    # (its launches replayed as served: cached, overlapped)
+    split = {}
+    for mode in ("counted", "recorder"):
+        for name in SERVE_SPANS:
+            d = [e["dur_us"] / 1e3 for e in spans[mode]
+                 if e["name"] == name]
+            if d:
+                split.setdefault(mode, {})[name] = dict(
+                    n=len(d), p50_ms=float(np.percentile(d, 50)),
+                    p99_ms=float(np.percentile(d, 99)))
+    k1 = replay_cached(served["off"], device)
+    # the counted request's launches against the plain version (replay
+    # holds each launch to it exactly, then times the uncached kernel)
+    exact = replay(served["counted"], device)
+    check_healthy(svc, "observe")
+    TRACE.clear()
+    METRICS.reset()
+    out = dict(turns=OBSERVE_TURNS, queries=n_queries, modes=OBSERVE_MODES,
+               launches=main_launches, micro_batches=main_batches,
+               launches_per_request=off["launches"],
+               overlapped_per_request=off["overlapped"],
+               counted_launches=sum(r["counted"] for rs in rows.values()
+                                    for r in rs),
+               uncounted_launches=sum(r["launches"] - r["counted"]
+                                      for rs in rows.values() for r in rs),
+               best_request_ms=best, lookups_per_s=lookups_per_s,
+               request_ms_spread=spread,
+               disarmed_over_off=best["disarmed"] / best["off"],
+               counted_over_off=best["counted"] / best["off"],
+               recorder_over_off=recorder_ratio,
+               recorder_over_off_paired_min_median_max=[
+                   float(min(paired)), recorder_ratio, float(max(paired))],
+               recorder_best_over_off_best=best["recorder"] / best["off"],
+               disabled_hook_ns=hook_ns, disabled_hook_frac=hook_frac,
+               tick_duty=tick_frac, span_split_host=split,
+               k1_device_ms_as_served=k1["ms_warm"],
+               k1_device_ms_uncached=exact["kernel_ms"],
+               max_abs_err=exact["max_abs_err"],
+               slo=wd.status(), jsonl_events=jsonl_events,
+               prometheus_families=len(fams), live_hotness_ok=True,
+               matches_searchsorted=True)
+    emit("observe", **out)
     return out
 
 
@@ -1309,6 +1694,8 @@ def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
     from repro_torch.kernels import planes as TPL
     from repro_torch.kernels import segment_lookup as SEG
     from repro_torch.kernels import stacked_lookup as SL
+    from repro_torch.core.parallel_build import _mp_context
+    from repro_torch.obs import TRACE
     from repro_torch.obs.metrics import METRICS
     from repro_torch.persist import format as PF
     from repro_torch.persist import (SNAPSHOT_FILE, WriteAheadLog, gen_name,
@@ -1318,6 +1705,8 @@ def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
     from repro_torch.serving import PlexService
     from repro_torch.serving import plex_service as PS
     root = pathlib.Path(tempfile.mkdtemp(prefix="plex-durable-"))
+    TRACE.clear()
+    TRACE.enable()
     try:
         free = shutil.disk_usage(root).free
         # a generation holds the 8-byte keys and a few percent more
@@ -1390,6 +1779,7 @@ def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
                                     cache_slots=CACHE_SLOTS,
                                     max_delay_s=QUEUE_MAX_DELAY_S,
                                     merge_threshold=0, fsync=True,
+                                    build_workers=BUILD_WORKERS,
                                     device=device)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -1406,7 +1796,7 @@ def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
                 got = back.lookup(q)
                 req_s = time.perf_counter() - t0
             calls.append(rec.calls)
-            want = np.searchsorted(logical, q, "left")
+            want = exact_ranks(logical, q)
             check(np.array_equal(got, want) and np.array_equal(got,
                                                                want_live),
                   f"durable request {i}: "
@@ -1446,10 +1836,15 @@ def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
               f"durable: after the merge {names}, manifest {man}")
         q = make_queries(back.logical_keys(), n_queries, rng)
         check(np.array_equal(back.lookup(q),
-                             np.searchsorted(back.logical_keys(), q, "left")),
+                             exact_ranks(back.logical_keys(), q)),
               "durable: lookups after the merge differ")
         check_healthy(back, "durable (after the merge)")
         back.close()
+        traced = TRACE.span_names()
+        need = ("wal.append", "wal.fsync", "persist.open", "merge.capture",
+                "merge.build", "merge.publish", "build.shard")
+        check(all(n in traced for n in need),
+              f"durable: spans {sorted(traced)} miss some of {need}")
         sec = tc.seconds
         upload_s = sec["planes"] - sec["biased_planes"] - sec["summary"]
         req = np.asarray(records)
@@ -1481,6 +1876,10 @@ def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
                    kernel_ms_first_request=first["kernel_ms"],
                    max_abs_err=first["max_abs_err"],
                    index_launches=index_launches, merge_s=merge_s,
+                   merge_build_workers=BUILD_WORKERS,
+                   cpu_count=os.cpu_count(),
+                   merge_start_method=_mp_context().get_start_method(),
+                   traced_spans=sorted(traced),
                    generation=1, generation0_collected=True,
                    matches_live=True, matches_searchsorted=True,
                    reference_validate="tests/test_torch_persist.py "
@@ -1488,6 +1887,8 @@ def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
         emit("durable", **out)
         return out
     finally:
+        TRACE.disable()
+        TRACE.clear()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1502,6 +1903,69 @@ class FakeClock:
 
 
 def phase_chaos(device, seed: int, n_keys: int, n_queries: int) -> dict:
+    """The chaos scenarios (``chaos_scenarios``) with tracing on and an
+    ``IncidentManager`` installed in a temporary directory: bundles must be
+    written for ``breaker.open``, ``backend.unavailable`` (the default
+    service that raises), ``generation.quarantine`` (the last-known-good
+    ``open``) and ``merge.failure``, each bundle's files must parse, and
+    the ``breaker.transition`` events must follow the breaker's states on
+    its injected clock (closed -> open, open -> half-open by the clock,
+    half-open -> closed or open) and count its opens."""
+    import shutil
+    import tempfile
+    from repro_torch.obs import TRACE, incident
+    inc_root = pathlib.Path(tempfile.mkdtemp(prefix="plex-incidents-"))
+    mgr = incident.install(inc_root)
+    TRACE.clear()
+    TRACE.enable()
+    try:
+        out = chaos_scenarios(device, seed, n_keys, n_queries)
+        events = TRACE.events()
+        bundles = {}
+        for b in mgr.bundles():
+            man = json.loads((b / "incident.json").read_text())
+            for name in ("health.json", "metrics.json"):
+                json.loads((b / name).read_text())
+            for line in (b / "spans.jsonl").read_text().splitlines():
+                if line:
+                    json.loads(line)
+            prometheus_families((b / "metrics.prom").read_text())
+            bundles.setdefault(man["kind"], []).append(b.name)
+    finally:
+        TRACE.disable()
+        TRACE.clear()
+        incident.uninstall()
+        shutil.rmtree(inc_root, ignore_errors=True)
+    # the default service that raises runs on the card only
+    need = ("breaker.open", "generation.quarantine", "merge.failure") + (
+        ("backend.unavailable",) if device.type == "cuda" else ())
+    check(all(k in bundles for k in need),
+          f"chaos: incident bundles {sorted(bundles)}, want {need}")
+    trans = [(e["attrs"]["frm"], e["attrs"]["to"]) for e in events
+             if e["name"] == "breaker.transition"
+             and e["attrs"]["breaker"] == "cuda"]
+    path, state = ["closed"], "closed"
+    for frm, to in trans:
+        if frm != state:
+            # open -> half-open happens on the clock, without an event
+            check(state == "open" and frm == "half_open",
+                  f"chaos: breaker transition {frm} -> {to} from {state}")
+            path.append(frm)
+        path.append(to)
+        state = to
+    br = out.pop("breaker")
+    check(trans and sum(to == "open" for _, to in trans) == br["opens"]
+          and state == br["state"] == "closed"
+          and {"closed", "open", "half_open"} <= set(path),
+          f"chaos: breaker.transition events {trans} against the breaker "
+          f"{br['state']} with {br['opens']} opens")
+    out.update(incident_bundles=bundles, breaker_transitions=len(trans),
+               breaker_opens=br["opens"], breaker_path=path)
+    emit("chaos", **out)
+    return out
+
+
+def chaos_scenarios(device, seed: int, n_keys: int, n_queries: int) -> dict:
     """Degraded, never wrong: a service over ``n_keys`` ``amzn`` keys that
     asked for the fallback chain (``fallback="auto"``; on the card the
     default is none), with ``backend.dispatch`` armed for ``cuda`` by
@@ -1668,8 +2132,8 @@ def phase_chaos(device, seed: int, n_keys: int, n_queries: int) -> dict:
                host_request_ms={k: float(np.mean(v)) for k, v in
                                 host.items()},
                last_known_good=True, merge_build_contained=True,
-               merge_retry_in_s=h["merge_retry_in_s"], default_chain=strict)
-    emit("chaos", **out)
+               merge_retry_in_s=h["merge_retry_in_s"], default_chain=strict,
+               breaker=h["breakers"]["cuda"])
     return out
 
 
@@ -2668,6 +3132,8 @@ def main(argv=None) -> int:
     queue = phase_serve_queue(device, args.seed, cache_svc, logical)
     check_healthy(cache_svc, "serve_cache")
     lap("serve_queue")
+    observe = phase_observe(device, args.seed, cache_svc, logical, QUERIES)
+    lap("observe")
     # the durable phase takes the cached service over and drops it without
     # close, as a crash would
     durable = phase_durable(device, args.seed, cache_svc,
@@ -2749,6 +3215,15 @@ def main(argv=None) -> int:
                     "probe_hist_ok": cache["probe_hist_ok"]},
         "queue": {"launches": queue["launches"],
                   "ticket_p99_ms": queue["ticket_p99_ms"]},
+        # the observed service: the same requests off, disarmed, counted
+        # and under the armed recorder
+        "observe": {"launches": observe["launches"],
+                    "launches_per_request": observe["launches_per_request"],
+                    "overlapped_per_request":
+                        observe["overlapped_per_request"],
+                    "counted_launches": observe["counted_launches"],
+                    "uncounted_launches": observe["uncounted_launches"],
+                    "recorder_over_off": observe["recorder_over_off"]},
         "merge_background": {"launches": merge_bg["launches"],
                              "merges": merge_bg["merges"]},
         # the reopened service (PlexService.open) and the chaos phase

@@ -4,7 +4,8 @@
     build_spline -> tune -> build_radix_table | build_cht -> PLEX
 
 ``LearnedIndex`` looks one PLEX up on the device or the host; ``Snapshot``
-shards the result and hands the serving pipeline its planes.
+shards the result and hands the serving pipeline its planes;
+``parallel_build`` builds the shards over a process pool.
 """
 from .autotune import TuneResult, cht_cost_model, radix_cost_model, tune
 from .cht import CHT, adjacent_lcp, bit_length_u64, build_cht

@@ -29,8 +29,8 @@ reference's on-disk format (``persist.format``); a loaded snapshot hands its
 mapped planes and persisted statics to the first stacked build of each
 shard range through ``host_planes_fn`` (the reference's warm-start hook).
 
-The build is serial here; the process-pool build of the reference
-(``repro.core.parallel_build``) is a later slice of the port.
+``Snapshot.build(workers=N)`` fans the per-shard builds over a process
+pool (``core.parallel_build``), bit-identical to the serial build.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ import numpy as np
 
 from ..device import resolve_device
 from ..kernels.backends import BACKENDS, get_backend
-from .plex import PLEX, build_plex, freeze_arrays
+from .plex import PLEX, BuildStats, build_plex, freeze_arrays
 
 # keep each shard's float32 rank plane well inside the 2^24 limit
 SHARD_MAX_KEYS = 1 << 23
@@ -196,11 +196,23 @@ class Snapshot:
 
     @classmethod
     def build(cls, keys: np.ndarray, eps: int, *, n_shards: int | None = None,
-              device=None, epoch: int = 0, **build_kw) -> "Snapshot":
+              device=None, epoch: int = 0, workers: int | None = None,
+              pool: str = "process", mp_context: Any = None,
+              **build_kw) -> "Snapshot":
         """Host-side sharded build (the paper's single-pass build per shard).
+
+        ``workers > 1`` fans the independent per-shard ``build_plex`` calls
+        over a process pool (``core.parallel_build``): the keys reach the
+        workers by memmap, copy-on-write fork or a scratch file, never
+        pickled, and the result is bit-identical to the serial build. Fork
+        is the start method until this process has initialised CUDA, spawn
+        after (``mp_context`` overrides); ``pool="thread"`` uses threads.
+        Per-shard phase timings are summed in ``build_stats``.
 
         The key array is adopted and frozen in place rather than copied (at
         200M keys a defensive copy would double resident memory)."""
+        from ..obs.trace import TRACE
+        from .parallel_build import build_shard_plexes
         device = resolve_device(device)
         keys = np.ascontiguousarray(keys, dtype=np.uint64)
         if keys.size == 0:
@@ -211,15 +223,28 @@ class Snapshot:
             n_shards = -(-keys.size // SHARD_MAX_KEYS)
         offsets = shard_offsets(keys, max(int(n_shards), 1))
         t0 = time.perf_counter()
-        ends = np.append(offsets[1:], keys.size)
-        plexes = [build_plex(keys[lo:hi], eps, **build_kw)
-                  for lo, hi in zip(offsets, ends)]
-        return cls(keys, eps, offsets, plexes, device=device,
+        plexes = build_shard_plexes(
+            keys, offsets, eps, workers=int(workers or 1), pool=pool,
+            mp_context=mp_context, **build_kw)
+        snap = cls(keys, eps, offsets, plexes, device=device,
                    build_s=time.perf_counter() - t0, epoch=epoch)
+        if TRACE.enabled:
+            bs = snap.build_stats
+            TRACE.record("build.spline", bs.spline_s, shards=len(plexes))
+            TRACE.record("build.tune", bs.tune_s, shards=len(plexes))
+            TRACE.record("build.layer", bs.layer_s, shards=len(plexes))
+        return snap
 
     @property
     def n_shards(self) -> int:
         return len(self.shards)
+
+    @property
+    def build_stats(self) -> BuildStats:
+        """Per-phase build timings summed over the shards (seconds of index
+        work; ``build_stats.total_s / build_s`` is the realised build
+        parallelism). Loaded snapshots report zeros."""
+        return BuildStats.aggregate([px.stats for px in self.shards])
 
     @property
     def n_keys(self) -> int:

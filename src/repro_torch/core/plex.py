@@ -69,6 +69,17 @@ class BuildStats:
     layer_s: float
     total_s: float
 
+    @classmethod
+    def aggregate(cls, stats: "list[BuildStats]") -> "BuildStats":
+        """Sum per-shard phase timings into one build-wide record: seconds
+        of index work, not wall time (a parallel build overlaps the shards,
+        so ``total_s / Snapshot.build_s`` is the realised parallelism).
+        Loaded snapshots carry zeroed stats."""
+        return cls(spline_s=sum(s.spline_s for s in stats),
+                   tune_s=sum(s.tune_s for s in stats),
+                   layer_s=sum(s.layer_s for s in stats),
+                   total_s=sum(s.total_s for s in stats))
+
 
 def freeze_arrays(*arrays: np.ndarray) -> None:
     """Mark numpy arrays immutable (``flags.writeable = False``).

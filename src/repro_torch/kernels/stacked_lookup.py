@@ -528,15 +528,16 @@ class StackedTorchPlex:
                                      device=self.planes.device)
 
     def take_counters(self) -> tuple[np.ndarray, np.ndarray] | None:
-        """Read the counter plane back to the host and start a fresh one:
-        ``(shard_counts, probe_hist)`` as int64 arrays, or ``None`` when no
-        counted dispatch has run. Best-effort under concurrent dispatches
-        (one racing the swap may drop its counts); a single-threaded stream
-        folds exactly."""
+        """Read the counter plane back to the host and drop it (the next
+        counted dispatch starts a fresh one): ``(shard_counts,
+        probe_hist)`` as int64 arrays, or ``None`` when no counted dispatch
+        has run since the last take, so uncounted serving reads nothing
+        back. Best-effort under concurrent dispatches (one racing the swap
+        may drop its counts); a single-threaded stream folds exactly."""
         c = self._counters
         if c is None:
             return None
-        self._counters = self._fresh_counters()
+        self._counters = None
         host = c.cpu().numpy()
         n = self.planes.n_shards
         return host[:n], host[n:]

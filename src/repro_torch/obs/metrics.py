@@ -187,7 +187,8 @@ class MetricsRegistry:
         # also routes stacked serving through the counted dispatch (K1's
         # counter plane -> exact live hotness / probe histograms), which
         # costs real device work per block. Clearing it keeps the registry
-        # on while serving through the uncounted kernel.
+        # on while serving through the uncounted kernel: the flight
+        # recorder clears it while armed (obs.recorder).
         self.counted_dispatch = True
         self._lock = threading.Lock()
         self._counters: dict[str, Counter] = {}

@@ -179,8 +179,7 @@ def save_snapshot(gen_dir: str | pathlib.Path, snap: Snapshot, *,
 
 class SnapshotWriter:
     """Incremental writer for the v1 snapshot format — the streamed half
-    of the parallel build (the reference's
-    ``core.parallel_build.build_generation``; the port's is a later slice).
+    of the parallel build (``core.parallel_build.build_generation``).
 
     ``save_snapshot`` needs the complete snapshot in memory to lay the
     header down first; at SOSD scale the build should instead append each

@@ -20,9 +20,9 @@ on filesystems without atomic rename semantics) is detected as
 ``CorruptManifestError`` rather than silently followed.
 
 The port's copy of ``repro.persist.manifest``: the bytes are the
-reference's, so each package follows the other's manifests. The
-reference's incident reports come with the port's tracing (``ROADMAP.md``
-queue 1, item 8).
+reference's, so each package follows the other's manifests. A failed
+commit and a corrupt manifest write ``manifest.commit_failed`` and
+``manifest.corrupt`` incident bundles when a manager is installed.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ import os
 import pathlib
 import zlib
 
+from ..obs.incident import report as _report_incident
 from ..resilience.faults import POINT_MANIFEST_COMMIT, fire
 
 MANIFEST_NAME = "MANIFEST.json"
@@ -107,7 +108,7 @@ def write_manifest(root: str | pathlib.Path, man: Manifest, *,
         # stays live
         fire(POINT_MANIFEST_COMMIT)
         os.replace(tmp, path)          # the commit
-    except BaseException:
+    except BaseException as e:
         # a caught failure additionally sweeps the orphan temp, so an
         # aborted publish leaves the directory byte-identical (a crash
         # still may leave the temp; the next publish overwrites it)
@@ -115,6 +116,8 @@ def write_manifest(root: str | pathlib.Path, man: Manifest, *,
             tmp.unlink()
         except OSError:  # pragma: no cover
             pass
+        _report_incident("manifest.commit_failed", repr(e),
+                         root=str(root), generation=man.generation)
         raise
     if fsync:
         fsync_dir(root)
@@ -135,10 +138,17 @@ def read_manifest(root: str | pathlib.Path) -> Manifest | None:
         payload = doc["manifest"]
         crc = int(doc["crc32"])
     except (json.JSONDecodeError, KeyError, TypeError, ValueError) as e:
+        _report_incident("manifest.corrupt", f"{path}: unreadable ({e})",
+                         root=str(root))
         raise CorruptManifestError(f"{path}: unreadable ({e})") from e
     if zlib.crc32(_payload_bytes(payload)) != crc:
+        _report_incident("manifest.corrupt", f"{path}: checksum mismatch",
+                         root=str(root))
         raise CorruptManifestError(f"{path}: checksum mismatch")
     if payload.get("schema") != SCHEMA_VERSION:
+        _report_incident("manifest.corrupt",
+                         f"{path}: schema {payload.get('schema')}",
+                         root=str(root))
         raise CorruptManifestError(
             f"{path}: schema {payload.get('schema')} != {SCHEMA_VERSION}")
     return Manifest(generation=int(payload["generation"]),

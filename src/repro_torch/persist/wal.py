@@ -39,8 +39,8 @@ trade the fsync for speed — the prefix-recovery contract is unchanged).
 The port's copy of ``repro.persist.wal``: the record layout is the
 reference's byte for byte, so each package replays the other's segments.
 Appends count in ``METRICS`` (``wal.append_records``, ``wal.append_bytes``,
-``wal.append_us``); the reference's trace spans come with the port's
-tracing (``ROADMAP.md`` queue 1, item 8).
+``wal.append_us``) and record ``wal.append`` / ``wal.fsync`` spans in
+``TRACE``.
 """
 from __future__ import annotations
 
@@ -54,6 +54,7 @@ import zlib
 import numpy as np
 
 from ..obs.metrics import METRICS
+from ..obs.trace import TRACE
 from ..resilience.faults import POINT_WAL_APPEND, POINT_WAL_FSYNC, fire
 from .manifest import fsync_dir
 
@@ -126,16 +127,20 @@ class WriteAheadLog:
         # surfaces to the caller BEFORE the delta buffer mutates, so the
         # WAL-before-mutation invariant (durable >= served) always holds
         fire(POINT_WAL_APPEND)
-        obs = METRICS.enabled
+        obs = METRICS.enabled or TRACE.enabled
         t0 = time.perf_counter() if obs else 0.0
         rec = _encode_record(op, keys)
         self._fh.write(rec)
         self._fh.flush()
         if self.fsync:
             fire(POINT_WAL_FSYNC)
+            tf = time.perf_counter() if obs else 0.0
             os.fsync(self._fh.fileno())
+            if obs:
+                TRACE.record("wal.fsync", time.perf_counter() - tf)
         if obs:
             dur = time.perf_counter() - t0
+            TRACE.record("wal.append", dur, bytes=len(rec), op=op)
             METRICS.counter("wal.append_records").inc()
             METRICS.counter("wal.append_bytes").inc(len(rec))
             METRICS.histogram("wal.append_us").observe(dur * 1e6)

@@ -19,10 +19,10 @@ tripping a breaker costs latency, not wrongness):
 ``clock`` is injectable so tests drive the cooldown deterministically
 instead of sleeping.
 
-The port's copy of ``repro.resilience.breakers``. Transitions count in
-``METRICS`` (``breaker.<name>.to_<state>``); the reference's trace events
-and incident reports come with the port's tracing (``ROADMAP.md`` queue 1,
-item 8).
+The port's copy of ``repro.resilience.breakers``. Each transition is a
+``breaker.transition`` trace event and counts in ``METRICS``
+(``breaker.<name>.to_<state>``); an open writes a ``breaker.open``
+incident bundle when a manager is installed (``obs.incident``).
 """
 from __future__ import annotations
 
@@ -30,7 +30,9 @@ import threading
 import time
 from typing import Callable
 
+from ..obs.incident import report as _report_incident
 from ..obs.metrics import METRICS
+from ..obs.trace import TRACE
 
 __all__ = ["CLOSED", "HALF_OPEN", "OPEN", "CircuitBreaker"]
 
@@ -101,8 +103,19 @@ class CircuitBreaker:
 
     def _note_transition(self, frm: str, to: str) -> None:
         """Telemetry for a state change (called outside ``_lock``)."""
+        if TRACE.enabled:
+            TRACE.event("breaker.transition", breaker=self.name,
+                        frm=frm, to=to)
         if METRICS.enabled:
             METRICS.counter(f"breaker.{self.name}.to_{to}").inc()
+        if to == OPEN:
+            _report_incident(
+                "breaker.open",
+                f"breaker {self.name!r} opened ({frm} -> open) after "
+                f"{self.failures} lifetime failure(s)",
+                breaker=self.name, frm=frm,
+                last_error=repr(self.last_error)
+                if self.last_error is not None else None)
 
     def record_success(self) -> None:
         with self._lock:

@@ -45,9 +45,8 @@ POINT_PARTITION_LOAD    one device's partition load / slab build
                         (defined; fires once the routed mesh is ported)
 POINT_MERGE_BUILD       ``PlexService._merge_once`` before the snapshot
                         rebuild
-POINT_BUILD_SHARD       parallel sharded build: collecting one shard's
-                        built PLEX (defined; fires once the parallel build
-                        is ported)
+POINT_BUILD_SHARD       sharded build (``core.parallel_build``), in the
+                        parent, as each shard's built PLEX is collected
 POINT_MERGE_WORKER      the background merge worker thread, at the top of
                         each wakeup — an uncaught trip here kills the
                         worker itself, the "worker death" chaos case

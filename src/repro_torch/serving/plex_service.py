@@ -79,12 +79,29 @@ micro-batch.
   generation is quarantined in favour of the last known good one
   (``keep_generations``).
 
+* **Parallel build.** ``build_workers=N`` fans the constructor's build and
+  every merge's rebuild over a process pool (``core.parallel_build``;
+  bit-identical to the serial build). The pool forks while this process has
+  not initialised CUDA and spawns once it has (always on the card), so no
+  worker opens a CUDA context.
+* **Observability.** ``obs.TRACE`` spans time the host clock through the
+  pipeline: ``serve.lookup`` around a request, ``serve.staging`` (the biased
+  pinned upload), ``serve.dispatch`` (the enqueue of K1's launches) and
+  ``serve.sync`` (the wait and the copy back); ``serve.submit``,
+  ``serve.queue_wait`` and ``serve.drain`` on the queue; ``merge.capture``,
+  ``merge.build`` and ``merge.publish``; ``persist.open``. No span syncs
+  the card or reads a device value, so a request's launches overlap as they
+  do untraced. Incident bundles (``obs.incident``) are written for
+  ``backend.unavailable``, ``merge.failure``, ``merge.worker_death``,
+  ``generation.quarantine`` and ``queue.shed``, off the service lock where
+  the caller does not hold it. ``attach_slo`` adds ``health()["slo"]``.
+
 Consistency: ``insert``/``delete``/``merge`` drain the queue first, so a
 queued lookup observes the state it was submitted against; ``lookup``
 itself is lock-free and captures one consistent state per call.
 
-Tracing and incident reports, and the routed mesh, are later slices of the
-port (``ROADMAP.md`` queue 1, items 8 and 10).
+The routed mesh is a later slice of the port (``ROADMAP.md`` queue 1, item
+10).
 """
 from __future__ import annotations
 
@@ -108,7 +125,9 @@ from ..kernels.keys import to_biased
 from ..kernels.planes import build_delta_planes, finalize_indices
 from ..kernels.stacked_lookup import N_PROBE_BUCKETS, PROBE_MODES, \
     LaneResult, StackedTorchPlex, check_cache_slots
+from ..obs.incident import report as _report_incident
 from ..obs.metrics import METRICS
+from ..obs.trace import TRACE
 from ..persist.format import load_snapshot, save_snapshot
 from ..persist.manifest import CorruptManifestError, Manifest, gen_name, \
     read_manifest, wal_name, write_manifest
@@ -376,6 +395,7 @@ class PlexService:
                  merge_mode: str = "sync", merge_backoff_s: float = 0.05,
                  merge_backoff_cap_s: float = 5.0,
                  keep_generations: int = 1, device=None,
+                 build_workers: int | None = None,
                  _snapshot: Snapshot | None = None, **build_kw):
         self.device = resolve_device(device)
         get_backend(backend)          # fail unknown names at construction
@@ -392,6 +412,8 @@ class PlexService:
             raise ValueError("merge_mode must be 'sync' or 'background'")
         if keep_generations < 1:
             raise ValueError("keep_generations must be >= 1")
+        if build_workers is not None and int(build_workers) < 1:
+            raise ValueError("build_workers must be >= 1 (None = serial)")
         if fallback is _UNSET:
             fallback = default_fallback(self.device)
         if isinstance(fallback, str) and fallback != "auto":
@@ -415,6 +437,8 @@ class PlexService:
         self.merge_backoff_s = float(merge_backoff_s)
         self.merge_backoff_cap_s = float(merge_backoff_cap_s)
         self.keep_generations = int(keep_generations)
+        self.build_workers = None if build_workers is None \
+            else int(build_workers)
         self.stats = ServiceStats()
         self._n_shards_req = n_shards
         self._build_kw = build_kw
@@ -440,7 +464,11 @@ class PlexService:
         # when the delta crossed the merge threshold without merging (None:
         # no backlog)
         self._backlog_since: float | None = None
+        self._last_backoff = 0.0
         self._closed = False
+        # optional obs.slo.SLOWatchdog (attach_slo); health() grows a "slo"
+        # section while one is attached
+        self._slo = None
         # background merges: _merge_mutex serialises merges with each other
         # and with save() (not with mutations: the lock order is
         # _merge_mutex -> _lock, and a background merge never holds _lock
@@ -471,7 +499,8 @@ class PlexService:
         else:
             keys = np.ascontiguousarray(keys, dtype=np.uint64)
             snap = Snapshot.build(keys, self.eps, n_shards=n_shards,
-                                  device=self.device, **build_kw)
+                                  device=self.device,
+                                  workers=self.build_workers, **build_kw)
         self._state = self._new_state(snap)
         # live per-shard routed counts and probe-travel histogram of the
         # current epoch, folded from the counted dispatch at sync points;
@@ -577,14 +606,16 @@ class PlexService:
         q = np.ascontiguousarray(q, dtype=np.uint64)
         if q.size == 0:
             return np.zeros(0, dtype=np.int64)
-        if not METRICS.enabled:
+        if not (METRICS.enabled or TRACE.enabled):
             return self._lookup_chain(q, backend)
         t0 = time.perf_counter()
-        out = self._lookup_chain(q, backend)
-        dur = time.perf_counter() - t0
-        METRICS.histogram("serve.lookup_us").observe(dur * 1e6)
-        METRICS.histogram("serve.lookup_ns_per_key").observe(
-            dur * 1e9 / q.size)
+        with TRACE.span("serve.lookup", backend=backend, n=q.size):
+            out = self._lookup_chain(q, backend)
+        if METRICS.enabled:
+            dur = time.perf_counter() - t0
+            METRICS.histogram("serve.lookup_us").observe(dur * 1e6)
+            METRICS.histogram("serve.lookup_ns_per_key").observe(
+                dur * 1e9 / q.size)
         return out
 
     def _lookup_chain(self, q: np.ndarray, backend: str) -> np.ndarray:
@@ -613,7 +644,12 @@ class PlexService:
                 log.warning("lookup: served by %r in place of %r", b,
                             backend)
             return out
-        raise BackendUnavailableError(chain, last_err) from last_err
+        err = BackendUnavailableError(chain, last_err)
+        _report_incident("backend.unavailable", str(err),
+                         health=self.health, chain=list(chain),
+                         last_error=repr(last_err)
+                         if last_err is not None else None)
+        raise err from last_err
 
     def _lookup(self, state: _ServiceState, q: np.ndarray,
                 backend: str | None = None) -> np.ndarray:
@@ -657,10 +693,15 @@ class PlexService:
         upload, every micro-batch launched at once, one sync at the end."""
         st = state.stacked if st is None else st
         epoch = state.snapshot.epoch
-        outs = st.dispatch(self._upload(q), self._delta_view(state))
+        delta = self._delta_view(state)
+        with TRACE.span("serve.staging", n=q.size):
+            qd = self._upload(q)
+        with TRACE.span("serve.dispatch", path="stacked", n=q.size):
+            outs = st.dispatch(qd, delta)
         self.stats.inflight_batches += len(outs)
         self.stats.note(q.size, len(outs), 0)
-        res = torch.cat([r.out for r in outs]).cpu().numpy()  # the sync
+        with TRACE.span("serve.sync", path="stacked", n=q.size):
+            res = torch.cat([r.out for r in outs]).cpu().numpy()
         self._note_synced(outs, epoch)
         self.stats.note_drained(len(outs))
         if METRICS.enabled:
@@ -676,28 +717,33 @@ class PlexService:
         the delta adjustment are folded on the host. The counted dispatch
         counts the host routing."""
         snap = state.snapshot
-        sid = snap.route(q)
-        counts = np.bincount(sid, minlength=snap.n_shards)
-        if METRICS.enabled and METRICS.counted_dispatch:
-            self._fold_hotness(counts, np.zeros(N_PROBE_BUCKETS, np.int64),
-                               snap.epoch)
-        # shard ids in the narrowest integer type: numpy's stable argsort
-        # radix-sorts 8- and 16-bit keys
-        order = np.argsort(sid.astype(np.min_scalar_type(snap.n_shards - 1)),
-                           kind="stable")
-        qd = self._upload(q[order])
-        outs, start = [], 0
-        for s, n in enumerate(counts):
-            if n:
-                st = self._shard_impl(snap, s, backend)
-                outs += st.dispatch(qd[start:start + n], chained=bool(outs),
-                                    counted=False)
-            start += n
+        with TRACE.span("serve.staging", n=q.size):
+            sid = snap.route(q)
+            counts = np.bincount(sid, minlength=snap.n_shards)
+            if METRICS.enabled and METRICS.counted_dispatch:
+                self._fold_hotness(counts,
+                                   np.zeros(N_PROBE_BUCKETS, np.int64),
+                                   snap.epoch)
+            # shard ids in the narrowest integer type: numpy's stable
+            # argsort radix-sorts 8- and 16-bit keys
+            order = np.argsort(
+                sid.astype(np.min_scalar_type(snap.n_shards - 1)),
+                kind="stable")
+            qd = self._upload(q[order])
+        with TRACE.span("serve.dispatch", path="per-shard", n=q.size):
+            outs, start = [], 0
+            for s, n in enumerate(counts):
+                if n:
+                    st = self._shard_impl(snap, s, backend)
+                    outs += st.dispatch(qd[start:start + n],
+                                        chained=bool(outs), counted=False)
+                start += n
         self.stats.inflight_batches += len(outs)
         self.stats.note(q.size, len(outs), 0)
         n_real = np.diff(np.append(snap.offsets, snap.n_keys))
-        local = finalize_indices(torch.cat([r.out for r in outs]), q.size,
-                                 np.repeat(n_real, counts))
+        with TRACE.span("serve.sync", path="per-shard", n=q.size):
+            local = finalize_indices(torch.cat([r.out for r in outs]),
+                                     q.size, np.repeat(n_real, counts))
         self.stats.note_drained(len(outs))
         out = np.empty(q.size, dtype=np.int64)
         out[order] = local + np.repeat(snap.offsets, counts)
@@ -803,7 +849,7 @@ class PlexService:
         with self._errors_lock:
             errors = list(self._errors)
         worker = self._merge_worker
-        return {
+        out = {
             "generation": self.generation,
             "epoch": int(state.snapshot.epoch),
             "n_keys": int(state.snapshot.n_keys + state.delta.net_keys),
@@ -839,6 +885,21 @@ class PlexService:
                 "registry": METRICS.snapshot(),
             },
         }
+        slo = self._slo
+        if slo is not None:
+            # present only while a watchdog is attached
+            out["slo"] = slo.status()
+        return out
+
+    def attach_slo(self, watchdog):
+        """Attach an ``obs.slo.SLOWatchdog`` (or ``None`` to detach): while
+        attached, ``health()`` carries a ``"slo"`` section with each
+        objective's state and burn rates. The service never drives the
+        watchdog itself: a flight-recorder probe (``obs.slo.watch_service``)
+        or a caller's loop feeds it ``observe(health())``. Returns the
+        watchdog."""
+        self._slo = watchdog
+        return watchdog
 
     def _note_synced(self, results: list[LaneResult], epoch: int) -> None:
         """Fold synced launches' cache telemetry into the stats (after the
@@ -1006,7 +1067,7 @@ class PlexService:
         """One capture -> rebuild -> publish cycle. The caller serialises
         merges (sync: the service lock; background: the merge mutex, so
         the rebuild runs with no service lock held)."""
-        with self._lock:
+        with TRACE.span("merge.capture"), self._lock:
             state = self._state
             if state.delta.empty:
                 return False
@@ -1027,7 +1088,7 @@ class PlexService:
             snap = Snapshot.build(
                 new_keys, self.eps, n_shards=self._n_shards_req,
                 device=self.device, epoch=state.snapshot.epoch + 1,
-                **self._build_kw)
+                workers=self.build_workers, **self._build_kw)
             # the new planes go up on a stream of the merge's own while the
             # old ones serve, are warmed there, and are published only once
             # that stream has finished: no lookup reads a half-uploaded
@@ -1052,10 +1113,31 @@ class PlexService:
                                   ignore_errors=True)
                     raise
         except Exception as e:
-            raise self._arm_merge_backoff(e) from e
+            err = self._arm_merge_backoff(e)
+            self._report_merge_failure("merge.failure", e)
+            raise err from e
+        if TRACE.enabled:
+            # build + warm + phase-1 write, measured from the capture point
+            TRACE.record("merge.build", time.perf_counter() - t0,
+                         n_keys=new_keys.size, epoch=snap.epoch)
         # the publish: drain the queue, durable phase 2 (a fresh WAL seeded
-        # with the residual and one manifest rename), then the swap
-        with self._lock:
+        # with the residual and one manifest rename), then the swap. A
+        # failed commit is reported once the lock is released.
+        try:
+            self._publish(snap, new, dur, new_gen, t0)
+        except MergeFailedError as err:
+            self._report_merge_failure("merge.failure", err.__cause__)
+            raise
+        if METRICS.enabled:
+            METRICS.counter("merge.cycles").inc()
+        return True
+
+    def _publish(self, snap: Snapshot, new: _ServiceState,
+                 dur: _DurableState | None, new_gen: int, t0: float) -> None:
+        """A merge's publish under the service lock: drain, the durable
+        commit (a failure arms the backoff and raises ``MergeFailedError``
+        with the live state untouched), the residual replay and the swap."""
+        with TRACE.span("merge.publish", epoch=snap.epoch), self._lock:
             self.drain()
             residual = list(self._op_journal)
             new_dur = None
@@ -1080,18 +1162,18 @@ class PlexService:
             self.stats.merge_s += time.perf_counter() - t0
             self.stats.new_epoch(snap.epoch)
             self._live = self._fresh_live(snap)
-        if METRICS.enabled:
-            METRICS.counter("merge.cycles").inc()
-        return True
 
     def _arm_merge_backoff(self, e: BaseException) -> MergeFailedError:
         """Count one contained merge failure and arm the capped exponential
-        retry backoff; returns the ``MergeFailedError`` to raise."""
+        retry backoff; returns the ``MergeFailedError`` to raise. The
+        incident report is the caller's (``_report_merge_failure``), made
+        where the service lock is not held for it."""
         self.stats.merge_failures += 1
         self._consec_merge_failures += 1
         backoff = min(self.merge_backoff_cap_s,
                       self.merge_backoff_s *
                       2.0 ** (self._consec_merge_failures - 1))
+        self._last_backoff = backoff
         self._merge_retry_at = time.monotonic() + backoff
         self._note_error(e)
         log.warning("merge failed (attempt %d, retry in %.3fs): %r; live "
@@ -1101,6 +1183,15 @@ class PlexService:
             f"merge failed ({self._consec_merge_failures} consecutive "
             f"attempt(s)): {e!r}; the live state is untouched and the "
             "delta keeps serving")
+
+    def _report_merge_failure(self, kind: str, e: BaseException) -> None:
+        """The incident bundle of a contained merge failure (``kind``:
+        ``merge.failure``, or ``merge.worker_death`` for a dead worker, so
+        the two bundle apart). In sync mode the caller's ``merge`` holds
+        the service lock throughout, as in the reference."""
+        _report_incident(kind, repr(e), health=self.health,
+                         consecutive=self._consec_merge_failures,
+                         retry_in_s=round(self._last_backoff, 3))
 
     # -- background merge worker --------------------------------------------
     def _notify_merge_worker(self) -> None:
@@ -1143,6 +1234,7 @@ class PlexService:
                             pass  # contained; backoff armed, retry later
                 except Exception as e:
                     self._arm_merge_backoff(e)
+                    self._report_merge_failure("merge.worker_death", e)
                     log.warning("merge worker died: %r; a fresh worker "
                                 "starts on the next update", e,
                                 exc_info=True)
@@ -1312,6 +1404,9 @@ class PlexService:
                             "(%r); quarantining and falling back", root,
                             gen_name(g), e)
                 _quarantine(root, gdir, root / wal_name(g))
+                _report_incident("generation.quarantine",
+                                 f"{gen_name(g)}: {e!r}", root=str(root),
+                                 generation=int(g))
         if snap is None:
             raise NoServableGenerationError(root, last_err)
         svc = cls(None, backend=backend, device=device, _snapshot=snap, **kw)
@@ -1352,6 +1447,9 @@ class PlexService:
             svc._dur = _DurableState(root=root, generation=chosen, wal=wal,
                                      fsync=fsync)
         svc.load_s = time.perf_counter() - t0
+        if TRACE.enabled:
+            TRACE.record("persist.open", svc.load_s,
+                         generation=svc.generation)
         return svc
 
     @property
@@ -1384,6 +1482,20 @@ class PlexService:
         ticket = LookupTicket(self, q.size)
         if q.size == 0:
             return ticket
+        with TRACE.span("serve.submit", n=q.size):
+            err = self._enqueue(q, ticket)
+        if err is not None:
+            # a refused submit: the bundle is written off the service lock
+            _report_incident("queue.shed", str(err), health=self.health,
+                             shed=int(q.size), overflow=self.overflow)
+            if self.overflow == "reject":
+                raise err
+        return ticket
+
+    def _enqueue(self, q: np.ndarray, ticket: LookupTicket
+                 ) -> QueueFullError | None:
+        """``submit``'s work under the service lock; returns the error of a
+        submit refused by admission control (the ticket then carries it)."""
         with self._lock:
             if self.max_queue and self._q_len + q.size > self.max_queue:
                 err = QueueFullError(
@@ -1391,18 +1503,16 @@ class PlexService:
                     f"{self.max_queue} lanes; {q.size} more would exceed "
                     "the bound")
                 self.stats.shed_queries += q.size
-                if self.overflow == "reject":
-                    raise err
                 ticket._error = err
                 ticket._filled, ticket._queued = q.size, 0
-                return ticket
+                return err
             # captured under the lock: mutations hold it too, so a queued
             # launch never pairs this snapshot with another epoch's delta
             st = self._state.stacked
             if st is None:
                 ticket._out[:] = self.lookup(q)
                 ticket._filled, ticket._queued = q.size, 0
-                return ticket
+                return None
             now = time.monotonic()
             self._q_chunks.append([ticket, q, 0, now])
             self._q_len += q.size
@@ -1414,7 +1524,7 @@ class PlexService:
                     self._flush_partial(st)
                 else:
                     self._arm_timer(self.max_delay_s - age)
-        return ticket
+        return None
 
     def _arm_timer(self, delay_s: float) -> None:
         """Schedule the deadline flush (one live timer at most; lock
@@ -1456,6 +1566,8 @@ class PlexService:
         buf = np.empty(want, dtype=np.uint64)
         pieces = []
         filled = 0
+        obs = METRICS.enabled or TRACE.enabled
+        now = time.monotonic() if obs else 0.0
         while filled < want and self._q_chunks:
             entry = self._q_chunks[0]
             ticket, arr, consumed, arrival = entry
@@ -1465,9 +1577,12 @@ class PlexService:
             ticket._queued -= take
             entry[2] += take
             filled += take
-            if METRICS.enabled:
-                METRICS.histogram("serve.queue_wait_us").observe(
-                    max(time.monotonic() - arrival, 0.0) * 1e6)
+            if obs:
+                wait_s = max(now - arrival, 0.0)
+                TRACE.record("serve.queue_wait", wait_s, lanes=take)
+                if METRICS.enabled:
+                    METRICS.histogram("serve.queue_wait_us").observe(
+                        wait_s * 1e6)
             if entry[2] == arr.size:
                 self._q_chunks.popleft()
         self._q_len -= filled
@@ -1600,10 +1715,12 @@ class PlexService:
             raise TimeoutError(
                 f"drain: service lock not acquired within {timeout}s")
         try:
-            self._cancel_timer()
-            if self._q_len:
-                self._flush_queue()
-            self._drain_outstanding(deadline)
+            with TRACE.span("serve.drain", queued=self._q_len,
+                            outstanding=len(self._outstanding)):
+                self._cancel_timer()
+                if self._q_len:
+                    self._flush_queue()
+                self._drain_outstanding(deadline)
         finally:
             self._lock.release()
 
