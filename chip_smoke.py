@@ -20,6 +20,17 @@ card, then drives the port's three paths:
   200M-key plane, one level against two; the same 200M keys built again
   by the process-pool build (``Snapshot.build(workers=)``, spawned workers,
   none holding a CUDA context) and held bit for bit to the serial build;
+* the routed path (``distrib``): that 200M-key snapshot placed over 1, 2, 4
+  and 8 slots of the card (and the fewest slots at which every slot
+  unifies): each plan, which slots unify, and where it partitions, eight
+  requests through K1 on every slot's own stream in turns with the
+  per-shard service on the same queries (launches a slot, launches that
+  overlap another slot's, K1's time a slot as served); a 4-slot service of
+  16M keys through inserts, deletes, a merge that re-plans and a slot that
+  fails to load at the next merge (a ``device.loss`` bundle, 3 slots
+  left) (``routed``); and ``plan_from_dir`` with ``open_routed`` over 4
+  slots on the generation ``durable`` persisted, each slot mapping less
+  than a full load (``routed_partial_load``);
 * the serving front end: a fused, cached service over 200M keys of an SOSD
   dataset whose shards unify, on Zipf(1.2) traffic: requests with the
   cache cold and warm, counted (live hotness and the probe histogram),
@@ -939,7 +950,7 @@ def phase_serve(device, seed: int, n_keys: int, n_queries: int) -> dict:
         "library_ms"], queries=n_queries, keys=n_keys)
     emit("serve_profile", path=out["path"],
          top_tottime_ms=profile_request(svc, requests[-1][1]))
-    return out
+    return out, svc
 
 
 def profile_request(svc, q, top: int = 10) -> list:
@@ -1548,6 +1559,391 @@ def phase_observe(device, seed: int, svc, logical, n_queries: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------- routed ----
+
+ROUTED_SLOTS = (1, 2, 4, 8)       # slots on the one card, each count in turn
+ROUTED_REQUESTS = 8
+ROUTED_PARTIAL_SLOTS = 4
+ROUTED_SERVICE_KEYS = 16_000_000  # the service drill merges twice
+ROUTED_SERVICE_SHARDS = 8
+ROUTED_SERVICE_SLOTS = 4
+ROUTED_INSERTS = 2048
+ROUTED_DELETES = 1024
+
+
+def slot_layout(snap, plan) -> list:
+    """Each slot of ``plan``: its shard range, its shards' layer kinds and
+    whether they unify (the partitioner's gate, read from statics)."""
+    from repro_torch.kernels.planes import shards_unify
+    rows = []
+    for d in range(plan.n_devices):
+        lo, hi = plan.shard_range(d)
+        kinds: dict = {}
+        for px in snap.shards[lo:hi]:
+            k = type(px.layer).__name__
+            kinds[k] = kinds.get(k, 0) + 1
+        rows.append(dict(slot=d, shards=[lo, hi], kinds=kinds,
+                         unifies=hi > lo and bool(shards_unify(
+                             snap.shards[lo:hi], snap.offsets[lo:hi]))))
+    return rows
+
+
+class slot_timeline:
+    """Within the block, every slot's dispatch of ``router`` is bracketed on
+    the slot's own stream by two CUDA events (before its first K1 launch,
+    after its last), and the K1 launches it made are counted
+    (``stacked_lookup.launches`` around it). ``request()`` opens a request
+    with an origin event on the current stream; after the request's sync
+    ``rows()`` gives (slot, start ms, end ms, launches, micro-batches) of
+    each dispatch, times from the origin. The events sit outside the
+    launches, so the launches stay adjacent on their stream. On the CPU (no
+    stream) the times are 0, and the launches (plain calls there) 0 too."""
+
+    def __init__(self, router):
+        self.router, self.events, self.origin = router, [], None
+        self.cuda = any(p.stream is not None for p in router.parts)
+
+    def _event(self):
+        import torch
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def __enter__(self):
+        from repro_torch.kernels import stacked_lookup as SL
+        self._impls = []
+        for d in self.router.plan.active:
+            impl = self.router.parts[int(d)].impl
+
+            def timed(qd, *a, _d=int(d), _o=impl.dispatch, **kw):
+                s = self._event()
+                l0 = SL.launches
+                out = _o(qd, *a, **kw)
+                e = self._event()
+                self.events.append((_d, s, e, SL.launches - l0, len(out)))
+                return out
+            impl.dispatch = timed
+            self._impls.append(impl)
+        return self
+
+    def __exit__(self, *exc):
+        for impl in self._impls:
+            del impl.dispatch        # the class's method again
+
+    def request(self) -> None:
+        self.events = []
+        self.origin = self._event()
+
+    def rows(self) -> list:
+        if not self.cuda:
+            return [(d, 0.0, 0.0, n, mb) for d, _, _, n, mb in self.events]
+        return [(d, self.origin.elapsed_time(s), self.origin.elapsed_time(e),
+                 n, mb) for d, s, e, n, mb in self.events]
+
+
+def slot_overlap(rows) -> dict:
+    """One request's slot rows -> each slot's K1 time as served (first
+    launch's start to last launch's end on its stream), the request's
+    device span, and the launches of slots whose busy interval overlaps
+    another slot's."""
+    overlapped = sum(n for i, (_, s, e, n, _) in enumerate(rows)
+                     if any(s < e2 and s2 < e for j, (_, s2, e2, _, _)
+                            in enumerate(rows) if j != i))
+    return dict(slot_ms={d: e - s for d, s, e, _, _ in rows},
+                span_ms=max(e for _, _, e, _, _ in rows)
+                - min(s for _, s, _, _, _ in rows),
+                overlapped_launches=overlapped,
+                launches=sum(n for _, _, _, n, _ in rows))
+
+
+def routed_slots(device, snap, n_slots: int, per_shard, requests, wants,
+                 bound_ms: float) -> dict:
+    """The 200M-key snapshot placed over ``n_slots`` slots of the card: the
+    plan, which slots unify, and where the partition serves, the requests
+    in turns with the per-shard service on the same queries (counts at 0
+    just before, read just after)."""
+    import torch
+    from repro_torch.distrib import plan_placement
+    from repro_torch.kernels import stacked_lookup as SL
+    from repro_torch.serving import PlexService
+    plan = plan_placement(snap, n_slots)
+    layout = slot_layout(snap, plan)
+    emit("routed_plan", slots=n_slots, plan=plan.describe().splitlines(),
+         layout=layout)
+    t0 = time.perf_counter()
+    svc = PlexService(None, eps=snap.eps, block=BLOCK, device=device,
+                      devices=[device] * n_slots, plan=n_slots,
+                      _snapshot=snap)
+    rec = dict(slots=n_slots, partitioned=svc.plan is not None,
+               unifying_slots=[r["slot"] for r in layout if r["unifies"]],
+               setup_s=time.perf_counter() - t0)
+    if svc.plan is None:
+        check(not all(r["unifies"] for r in layout if r["shards"][1]
+                      > r["shards"][0]),
+              f"routed: {n_slots} unifying slots did not partition")
+        return rec
+    router = svc._state.router
+    if device.type == "cuda":
+        check(len({router.parts[int(d)].stream.cuda_stream
+                   for d in plan.active}) == plan.n_active,
+              "routed: slots share a stream")
+    svc.warmup()
+    routed = [int(d) for d in plan.active
+              if any(np.any(plan.device_of(q) == d) for q in requests)]
+    routed_ms, shard_ms, turns = [], [], []
+    per_slot = {d: 0 for d in routed}
+    shard_batches = 0
+    # ---- the main path: counts at 0 just before, read just after
+    SL.launches = SL.plain_calls = 0
+    with slot_timeline(router) as tl:
+        for i, (q, want) in enumerate(zip(requests, wants)):
+            tl.request()
+            t0 = time.perf_counter()
+            got = svc.lookup(q)
+            routed_ms.append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(got, want),
+                  f"routed {n_slots} slots request {i}: "
+                  f"{int(np.sum(got != want))} ranks differ from "
+                  "searchsorted")
+            rows = tl.rows()
+            for d, _, _, n, mb in rows:
+                check(n == mb or not tl.cuda, f"routed slot {d}: {n} K1 "
+                      f"launches for {mb} micro-batches")
+                per_slot[d] += n if tl.cuda else mb
+            turns.append(slot_overlap(rows))
+            b0 = per_shard.stats.batches
+            t0 = time.perf_counter()
+            got = per_shard.lookup(q)
+            shard_ms.append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(got, want),
+                  f"per-shard request {i} differs from searchsorted")
+            shard_batches += per_shard.stats.batches - b0
+    launches, plain = SL.launches, SL.plain_calls
+    # ---- end of the main path
+    check(plain == 0, f"routed: {plain} plain-pipeline calls")
+    check(launches == sum(per_slot.values()) + shard_batches
+          or device.type != "cuda",
+          f"routed: {launches} K1 launches != {sum(per_slot.values())} "
+          f"routed + {shard_batches} per-shard micro-batches")
+    check(all(per_slot[d] > 0 for d in routed),
+          f"routed: a routed slot launched no K1: {per_slot}")
+    check_healthy(svc, f"routed ({n_slots} slots)")
+    rec["profile_top_tottime_ms"] = profile_request(svc, requests[-1])
+    n_q = sum(q.size for q in requests)
+    rec.update(
+        launches_per_slot={str(d): n for d, n in per_slot.items()},
+        launches=sum(per_slot.values()),
+        overlapped_launches=sum(t["overlapped_launches"] for t in turns),
+        k1_ms_per_slot={str(d): float(np.mean([t["slot_ms"][d]
+                                               for t in turns]))
+                        for d in routed},
+        device_span_ms=float(np.mean([t["span_ms"] for t in turns])),
+        bound_ms=bound_ms,
+        lookups_per_s=n_q / (sum(routed_ms) / 1e3),
+        p99_request_ms=float(np.percentile(routed_ms, 99)),
+        request_ms=routed_ms,
+        per_shard_lookups_per_s=n_q / (sum(shard_ms) / 1e3),
+        per_shard_p99_request_ms=float(np.percentile(shard_ms, 99)),
+        per_shard_request_ms=shard_ms, per_shard_launches=shard_batches,
+        matches_searchsorted=True)
+    svc.close()
+    return rec
+
+
+def routed_service(device, seed: int, n_queries: int) -> dict:
+    """The service drill: ``PlexService(devices=[card] * 4, plan=4)`` over
+    ``ROUTED_SERVICE_KEYS`` keys of the first SOSD dataset whose 4-slot plan
+    partitions (``osm``, ``wiki``, ``amzn``); inserts and deletes through
+    the routed merged path, a merge that re-plans, then a merge during
+    which ``distrib.partition.load`` fails once for slot 1: the service
+    re-plans onto 3 slots and writes a ``device.loss`` incident bundle, the
+    ranks stay exact and K1 launches on every surviving slot."""
+    import shutil
+    import tempfile
+    from repro_torch.data import generate
+    from repro_torch.kernels import stacked_lookup as SL
+    from repro_torch.obs import incident
+    from repro_torch.resilience import FAULTS, POINT_PARTITION_LOAD, \
+        fail_once
+    from repro_torch.serving import PlexService
+    emit("reduced", routed_service_keys=ROUTED_SERVICE_KEYS, of=SERVE_KEYS,
+         why="the service drill rebuilds its snapshot at two merges")
+    rng = np.random.default_rng(seed + 21)
+    for name in ("osm", "wiki", "amzn"):
+        keys = generate(name, ROUTED_SERVICE_KEYS, seed)
+        svc = PlexService(keys, eps=64, block=BLOCK, device=device,
+                          n_shards=ROUTED_SERVICE_SHARDS,
+                          devices=[device] * ROUTED_SERVICE_SLOTS,
+                          plan=ROUTED_SERVICE_SLOTS, merge_threshold=0)
+        if svc.plan is not None:
+            break
+        svc.close()
+    check(svc.plan is not None, "routed service: no dataset partitions")
+    check(svc.health()["routed_devices"] == ROUTED_SERVICE_SLOTS,
+          f"routed service: routed_devices {svc.health()['routed_devices']}")
+    svc.warmup()
+
+    def serve(what: str) -> dict:
+        logical = svc.logical_keys()
+        q = make_queries(logical, n_queries, rng)
+        router = svc._state.router
+        SL.launches = SL.plain_calls = 0
+        with slot_timeline(router) as tl:
+            tl.request()
+            got = svc.lookup(q)
+            rows = tl.rows()
+        check(np.array_equal(got, exact_ranks(logical, q)),
+              f"routed service ({what}): ranks differ from searchsorted")
+        per_slot = {}
+        for d, _, _, n, mb in rows:
+            per_slot[str(d)] = per_slot.get(str(d), 0) + (n if tl.cuda
+                                                          else mb)
+        check(SL.plain_calls == 0
+              and (SL.launches == sum(per_slot.values()) or not tl.cuda)
+              and all(per_slot.get(str(int(d)), 0) > 0
+                      for d in router.plan.active
+                      if np.any(router.plan.device_of(q) == d)),
+              f"routed service ({what}): launches {per_slot}, total "
+              f"{SL.launches}, plain {SL.plain_calls}")
+        return dict(slots=router.plan.n_devices, launches_per_slot=per_slot,
+                    **{k: v for k, v in slot_overlap(rows).items()
+                       if k != "slot_ms"})
+
+    out = dict(dataset=name, keys=ROUTED_SERVICE_KEYS,
+               shards=svc.n_shards, fresh=serve("fresh"))
+    svc.insert(rng.integers(keys[0], keys[-1], ROUTED_INSERTS,
+                            dtype=np.uint64))
+    svc.delete(keys[rng.integers(0, keys.size, ROUTED_DELETES)])
+    out["merged"] = serve("live delta")
+    plan0 = svc.plan
+    t0 = time.perf_counter()
+    check(svc.merge(), "routed service: the merge did not run")
+    out["merge_s"] = time.perf_counter() - t0
+    check(svc.plan is not plan0
+          and svc.plan.n_devices == ROUTED_SERVICE_SLOTS,
+          "routed service: the merge did not re-plan")
+    out["after_merge"] = serve("after the merge")
+    inc_root = pathlib.Path(tempfile.mkdtemp(prefix="plex-routed-inc-"))
+    mgr = incident.install(inc_root)
+    try:
+        svc.insert(rng.integers(keys[0], keys[-1], ROUTED_INSERTS,
+                                dtype=np.uint64))
+        with FAULTS.injected(POINT_PARTITION_LOAD, fail_once(device=1)):
+            check(svc.merge(), "routed service: the second merge did not "
+                  "run")
+        bundles = [b.name for b in mgr.bundles()]
+    finally:
+        incident.uninstall()
+        FAULTS.reset()
+        shutil.rmtree(inc_root, ignore_errors=True)
+    h = svc.health()
+    check(h["routed_devices"] == ROUTED_SERVICE_SLOTS - 1
+          and [b.split("-", 1)[1] for b in bundles] == ["device-loss"],
+          f"routed service: after the loss routed_devices "
+          f"{h['routed_devices']}, bundles {bundles}")
+    check(h["fallback_lookups"] == 0 and h["backend_failures"] == 0
+          and all("PartitionLoadError" in e for e in h["last_errors"]),
+          f"routed service: unexpected errors {h['last_errors'][:3]}")
+    out["after_loss"] = serve("after the device loss")
+    out.update(routed_devices_after_loss=h["routed_devices"],
+               incident_bundles=bundles, matches_searchsorted=True)
+    svc.close()
+    return out
+
+
+def phase_routed(device, seed: int, snap, n_queries: int) -> dict:
+    """The routed path: the ``serve`` phase's 200M-key snapshot placed over
+    1, 2, 4 and 8 slots of the card (and the fewest slots at which every
+    slot unifies, where that is another count), each count that partitions
+    serving ``ROUTED_REQUESTS`` requests in turns with the per-shard service
+    on the same queries; then the service drill (``routed_service``). The
+    partial load runs in the ``durable`` phase, on its generation."""
+    import torch
+    from repro_torch.distrib import plan_placement
+    from repro_torch.serving import PlexService
+    rng = np.random.default_rng(seed + 20)
+    keys = snap.keys
+    requests = [make_queries(keys, n_queries, rng)
+                for _ in range(ROUTED_REQUESTS)]
+    wants = [exact_ranks(keys, q) for q in requests]
+    # K1's bound for a request (the first; the others are alike)
+    bound_ms = bound_bytes(snap, requests[0]) / (PEAK_HBM_TBS * 1e12) * 1e3
+    first = next((n for n in range(1, snap.n_shards + 1)
+                  if all(r["unifies"] for r in slot_layout(
+                      snap, plan_placement(snap, n))
+                         if r["shards"][1] > r["shards"][0])), None)
+    counts = sorted(set(ROUTED_SLOTS) | ({first} if first else set()))
+    # the per-shard service over the same snapshot: its shards' planes are
+    # the snapshot's cached ones, nothing is rebuilt
+    per_shard = PlexService(None, eps=snap.eps, block=BLOCK, device=device,
+                            _snapshot=snap)
+    per_shard.warmup()
+    slots = {}
+    for n in counts:
+        rec = routed_slots(device, snap, n, per_shard, requests, wants,
+                           bound_ms)
+        emit("routed_slots", **rec)
+        slots[str(n)] = rec
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    check_healthy(per_shard, "routed (per-shard service)")
+    served = [r for r in slots.values() if r["partitioned"]]
+    check(bool(served), "routed: no slot count partitions the snapshot")
+    out = dict(keys=int(keys.size), shards=snap.n_shards,
+               layer_kinds=_kinds(snap), first_unifying_slots=first,
+               per_shard_path="fused" if per_shard.fused else "per-shard",
+               slots=slots,
+               service=routed_service(device, seed, n_queries))
+    per_shard.close()
+    emit("routed", **{k: v for k, v in out.items() if k != "slots"})
+    return out
+
+
+def routed_partial_load(device, gen_dir, logical, n_queries: int,
+                        seed: int) -> dict:
+    """``plan_from_dir`` and ``open_routed`` over ``ROUTED_PARTIAL_SLOTS``
+    slots of the card on a persisted generation: each slot maps strictly
+    fewer bytes than one full load, and the routed ranks are exact, with K1
+    launching on every slot routed to."""
+    from repro_torch.distrib import open_routed, plan_from_dir
+    from repro_torch.kernels import stacked_lookup as SL
+    from repro_torch.persist import load_snapshot
+    t0 = time.perf_counter()
+    full = load_snapshot(gen_dir, device=device).mapped_bytes
+    plan = plan_from_dir(gen_dir, ROUTED_PARTIAL_SLOTS)
+    router, snaps, mapped = open_routed(
+        gen_dir, plan, [device] * ROUTED_PARTIAL_SLOTS, block=BLOCK)
+    open_s = time.perf_counter() - t0
+    per_slot = [s.mapped_bytes for s in snaps]
+    check(all(b < full for b in per_slot),
+          f"routed partial load: slots map {per_slot} of {full} bytes")
+    q = make_queries(logical, n_queries, np.random.default_rng(seed + 22))
+    with slot_timeline(router) as tl:
+        tl.request()
+        # ---- the main path: counts at 0 just before, read just after
+        SL.launches = SL.plain_calls = 0
+        out, batch = router.lookup(q)
+        launches, plain = SL.launches, SL.plain_calls
+        rows = tl.rows()
+    check(np.array_equal(out, exact_ranks(logical, q)),
+          "routed partial load: ranks differ from searchsorted")
+    per = {str(d): n if tl.cuda else mb for d, _, _, n, mb in rows}
+    check(plain == 0 and (launches == batch.n_batches or not tl.cuda)
+          and len(per) == plan.n_active and all(per.values()),
+          f"routed partial load: launches {per}, total {launches}, "
+          f"micro-batches {batch.n_batches}, plain {plain}")
+    rec = dict(slots=ROUTED_PARTIAL_SLOTS, plan=plan.describe().splitlines(),
+               full_mapped_bytes=full, mapped_bytes_per_slot=per_slot,
+               mapped_bytes=mapped, open_s=open_s, launches_per_slot=per,
+               **{k: v for k, v in slot_overlap(rows).items()
+                  if k != "slot_ms"}, matches_searchsorted=True)
+    del router, snaps
+    return rec
+
+
 # ------------------------------------------------------ merge_background ----
 
 def phase_merge_background(device, seed: int, n_keys: int) -> dict:
@@ -1672,7 +2068,8 @@ class timed_calls:
             setattr(owner, name, orig)
 
 
-def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
+def phase_durable(device, seed: int, svc, keys, n_queries: int,
+                  partial=None) -> dict:
     """Restart from disk and serve through K1: the fused, cached service of
     ``serve_cache`` is saved to a directory under ``tempfile`` (fsync on),
     takes ``DURABLE_INSERTS`` inserts and ``DURABLE_DELETES`` deletes through
@@ -1686,7 +2083,10 @@ def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
     and collects generation 0. ``load_s`` is split into map, biased planes,
     key summary, upload and WAL replay by timing those calls inside the
     open. Where the disk cannot hold two generations of the service, a
-    smaller ``osm`` service takes its place (a ``reduced`` line)."""
+    smaller ``osm`` service takes its place (a ``reduced`` line).
+    ``partial(gen_dir, logical)``, when given, runs on generation 1 before
+    the directory goes (the routed phase's partial load); its record and
+    seconds are returned as ``routed_partial`` and ``routed_partial_s``."""
     import shutil
     import tempfile
     import torch
@@ -1839,6 +2239,12 @@ def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
                              exact_ranks(back.logical_keys(), q)),
               "durable: lookups after the merge differ")
         check_healthy(back, "durable (after the merge)")
+        routed_partial, partial_s = None, 0.0
+        if partial is not None:
+            t0 = time.perf_counter()
+            routed_partial = partial(root / gen_name(1), back.snapshot.keys)
+            partial_s = time.perf_counter() - t0
+            emit("routed_partial_load", seconds=partial_s, **routed_partial)
         back.close()
         traced = TRACE.span_names()
         need = ("wal.append", "wal.fsync", "persist.open", "merge.capture",
@@ -1881,6 +2287,8 @@ def phase_durable(device, seed: int, svc, keys, n_queries: int) -> dict:
                    merge_start_method=_mp_context().get_start_method(),
                    traced_spans=sorted(traced),
                    generation=1, generation0_collected=True,
+                   routed_partial=routed_partial,
+                   routed_partial_s=partial_s,
                    matches_live=True, matches_searchsorted=True,
                    reference_validate="tests/test_torch_persist.py "
                    "(repro.persist.format.validate_snapshot, CPU)")
@@ -3122,8 +3530,14 @@ def main(argv=None) -> int:
     lap("build")
     kern = phase_kernel(device, args.seed, KERNEL_KEYS, QUERIES)
     lap("kernel")
-    serve = phase_serve(device, args.seed, args.serve_keys, QUERIES)
+    serve, serve_svc = phase_serve(device, args.seed, args.serve_keys,
+                                   QUERIES)
     lap("serve")
+    routed = phase_routed(device, args.seed, serve_svc.snapshot, QUERIES)
+    del serve_svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("routed")
     phase_merge(device, args.seed, KERNEL_KEYS, QUERIES)
     lap("merge")
     cache, cache_svc, logical = phase_serve_cache(
@@ -3136,12 +3550,17 @@ def main(argv=None) -> int:
     lap("observe")
     # the durable phase takes the cached service over and drops it without
     # close, as a crash would
-    durable = phase_durable(device, args.seed, cache_svc,
-                            cache_svc.snapshot.keys, QUERIES)
+    durable = phase_durable(
+        device, args.seed, cache_svc, cache_svc.snapshot.keys, QUERIES,
+        partial=lambda gen_dir, keys: routed_partial_load(
+            device, gen_dir, keys, QUERIES, args.seed))
     del cache_svc, logical
     gc.collect()
     torch.cuda.empty_cache()
     lap("durable")
+    # the routed phase's partial load ran inside durable, on its generation
+    lap.seconds["durable"] -= durable["routed_partial_s"]
+    lap.seconds["routed_partial_load"] = durable["routed_partial_s"]
     merge_bg = phase_merge_background(device, args.seed, KERNEL_KEYS)
     lap("merge_background")
     chaos = phase_chaos(device, args.seed, CHAOS_KEYS, QUERIES)
@@ -3235,7 +3654,18 @@ def main(argv=None) -> int:
         "chaos": {"launches_before": chaos["k1_launches_before"],
                   "launches_after": chaos["k1_launches_after"],
                   "fallback_lookups": chaos["fallback_lookups"],
-                  "torch_over_k1": chaos["torch_over_k1"]}}] + [{
+                  "torch_over_k1": chaos["torch_over_k1"]},
+        # the routed path: the 200M-key snapshot over slots of the card,
+        # the partial load over 4 slots, the 4-slot service drill
+        "routed": {
+            "keys": routed["keys"], "shards": routed["shards"],
+            "layer_kinds": routed["layer_kinds"],
+            "first_unifying_slots": routed["first_unifying_slots"],
+            "slots": {n: {k: v for k, v in r.items()
+                          if k not in ("request_ms", "per_shard_request_ms")}
+                      for n, r in routed["slots"].items()},
+            "partial_load": durable["routed_partial"],
+            "service": routed["service"]}}] + [{
         "name": name, "route": "cuda", "source": sources[name],
         "replaces": replaces[name], "launches": k["launches"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -400,6 +400,24 @@ class StackedPlanes:
         return self.dk.device
 
 
+def _unify_gate(hss: Sequence[_HostStatics | _HostPlanes],
+                row_off: np.ndarray) -> bool:
+    """Whether shards of these statics, at global key offsets ``row_off``,
+    stack into one layout: one layer kind, one radix width among CHT
+    shards, and a global key count below 2^31."""
+    if len({hs.kind for hs in hss}) != 1:
+        return False
+    if hss[0].kind == "cht" and len({hs.static["r"] for hs in hss}) != 1:
+        return False
+    return int(row_off[-1]) + hss[-1].n_real < (1 << 31)
+
+
+def shards_unify(plexes: Sequence[PLEX], row_off: np.ndarray) -> bool:
+    """``build_stacked_planes``' unification gate alone, from the shards'
+    statics (no plane is built)."""
+    return _unify_gate([_host_statics(px) for px in plexes], row_off)
+
+
 def build_stacked_planes(plexes: Sequence[PLEX], row_off: np.ndarray,
                          device, host_planes: Sequence[_HostPlanes] | None
                          = None, summary_keys: int | None = None
@@ -414,15 +432,10 @@ def build_stacked_planes(plexes: Sequence[PLEX], row_off: np.ndarray,
     # do not unify
     hss = (list(host_planes) if host_planes is not None
            else [_host_statics(px) for px in plexes])
-    kinds = {hs.kind for hs in hss}
-    if len(kinds) != 1:
+    if not _unify_gate(hss, row_off):
         return None
-    kind = kinds.pop()
-    if kind == "cht" and len({hs.static["r"] for hs in hss}) != 1:
-        return None
+    kind = hss[0].kind
     n_real_total = int(row_off[-1]) + hss[-1].n_real
-    if n_real_total >= (1 << 31):
-        return None
     hps = (list(host_planes) if host_planes is not None
            else [_host_planes(px) for px in plexes])
 

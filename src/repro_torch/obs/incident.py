@@ -31,8 +31,8 @@ resilience layers stay import-light and the obs package never imports
 them (the armed-faults payload is fetched lazily at write time).
 
 The port's own copy of ``repro.obs.incident``: the same kinds, bundle
-names and files. ``device.loss`` is fired once the routed mesh is ported
-(``ROADMAP.md`` queue 1, item 10).
+names and files. ``device.loss`` is fired by the service's router when a
+slot's slab fails to load (``distrib``).
 """
 from __future__ import annotations
 

@@ -491,8 +491,8 @@ def load_snapshot(gen_dir: str | pathlib.Path, *, verify: bool = False,
     distrib tests pin it strictly below a full load's. Under ``verify``
     the partial path checks every *fully* mapped plane's CRC (the sliced
     key plane cannot be verified without reading bytes outside the slice,
-    which would defeat the point). The mesh that serves such views is a
-    later slice of the port.
+    which would defeat the point). ``distrib.loader`` serves such views,
+    one a placement slot.
     """
     gen_dir = pathlib.Path(gen_dir)
     path = gen_dir / SNAPSHOT_FILE

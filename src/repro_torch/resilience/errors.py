@@ -1,6 +1,6 @@
 """Typed failure vocabulary for the resilience layer (the port's copy of
-``repro.resilience.errors``; ``PartitionLoadError`` is raised once the
-routed mesh is ported).
+``repro.resilience.errors``; ``PartitionLoadError`` names the slot whose
+slab failed to load, ``distrib``).
 
 The fault-matrix acceptance contract is "parity or a typed error, never a
 wrong answer, never a hang" — these are the types. Every degraded-path

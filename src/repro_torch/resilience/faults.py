@@ -41,8 +41,8 @@ POINT_WAL_APPEND        ``WriteAheadLog.append`` before the record write
 POINT_WAL_FSYNC         ``WriteAheadLog.append`` before the fsync
 POINT_MANIFEST_COMMIT   ``persist.manifest.write_manifest`` before the
                         atomic rename (nothing committed when it trips)
-POINT_PARTITION_LOAD    one device's partition load / slab build
-                        (defined; fires once the routed mesh is ported)
+POINT_PARTITION_LOAD    one slot's partition load / slab build
+                        (``distrib.partition``, ``distrib.loader``)
 POINT_MERGE_BUILD       ``PlexService._merge_once`` before the snapshot
                         rebuild
 POINT_BUILD_SHARD       sharded build (``core.parallel_build``), in the

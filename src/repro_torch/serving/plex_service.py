@@ -1,9 +1,9 @@
-"""PlexService — serve (and update) PLEX lookups on one device.
+"""PlexService — serve (and update) PLEX lookups on one device or over
+placement slots.
 
-The port of ``repro.serving.plex_service.PlexService``'s single-device
-serving: a sharded snapshot built on the host (or opened from disk), a
-delta buffer of inserts and deletes, and one device launch per
-micro-batch.
+The port of ``repro.serving.plex_service.PlexService``: a sharded snapshot
+built on the host (or opened from disk), a delta buffer of inserts and
+deletes, and one device launch per micro-batch.
 
 * **Backends.** Names resolve through the registry (``kernels.backends``):
   ``cuda`` (the default: K1, one launch per micro-batch), ``torch`` (the
@@ -16,6 +16,22 @@ micro-batch.
   routed and grouped by shard on the host, uploaded once, and each shard's
   slice runs through a single-shard stacked impl, one launch per
   micro-batch; the host adds the global offsets and the delta adjustment.
+* **Routed path (opt-in).** ``plan=`` places the snapshot over slots of
+  ``devices=`` (every visible card by default; a list may repeat one card,
+  and then each slot is a partition of its own on it): an int spans that
+  many slots (a ``PlacementPlan`` pins the first assignment), shards are
+  bin-packed onto slots from build statics (``distrib.placement``), each
+  slot holds only its shard-contiguous slab and a stream of its own
+  (``distrib.partition``), and lookups take the routed path
+  (``distrib.routed_lookup``): host binning to slots, each slot's
+  micro-batches through K1 on its stream with the delta folded in, one
+  sync, host re-permutation. Unification is per slot, so a snapshot whose
+  shards do not unify as a whole may still serve fused per slot. Every
+  merge (and ``open``) re-plans the new snapshot, skew-aware once counted
+  traffic has been seen (``live_hotness``). A slot whose slab fails to load
+  is dropped: the service re-plans onto the others and reports a
+  ``device.loss`` incident. A backend without a stacked path (``numpy``)
+  gets no router; a plan whose slots do not unify serves without one.
 * **Overlap.** Within one request's dispatch every launch but the first is
   a programmatic dependent launch on the one before it
   (``kernels.stacked_lookup``).
@@ -99,9 +115,6 @@ micro-batch.
 Consistency: ``insert``/``delete``/``merge`` drain the queue first, so a
 queued lookup observes the state it was submitted against; ``lookup``
 itself is lock-free and captures one consistent state per call.
-
-The routed mesh is a later slice of the port (``ROADMAP.md`` queue 1, item
-10).
 """
 from __future__ import annotations
 
@@ -120,6 +133,10 @@ import torch
 
 from ..core.index import Snapshot
 from ..device import resolve_device
+from ..distrib.partition import partition_stacked, slot_device
+from ..distrib.placement import (PlacementPlan, live_hotness, plan_matches,
+                                 plan_placement)
+from ..distrib.routed_lookup import RoutedStackedLookup
 from ..kernels.backends import backend_names, get_backend
 from ..kernels.keys import to_biased
 from ..kernels.planes import build_delta_planes, finalize_indices
@@ -135,7 +152,7 @@ from ..persist.wal import OP_DELETE, OP_INSERT, WriteAheadLog
 from ..resilience.breakers import CLOSED, DEFAULT_COOLDOWN_S, \
     DEFAULT_FAILURE_THRESHOLD, CircuitBreaker
 from ..resilience.errors import BackendUnavailableError, MergeFailedError, \
-    NoServableGenerationError, QueueFullError
+    NoServableGenerationError, PartitionLoadError, QueueFullError
 from ..resilience.faults import FAULTS, POINT_BACKEND_DISPATCH, \
     POINT_MERGE_BUILD, POINT_MERGE_WORKER, fire
 from .delta import DELTA_CAP_MIN, DeltaBuffer, next_pow2
@@ -277,13 +294,16 @@ class LookupTicket:
 
 @dataclasses.dataclass(frozen=True)
 class _ServiceState:
-    """One consistent (snapshot, delta, fused impl) triple; published by a
-    single reference assignment at a merge. ``stacked`` is the default
-    backend's fused impl (``None``: the shards do not unify, or the default
-    backend is a host one)."""
+    """One consistent (snapshot, delta, fused impl, router) state; published
+    by a single reference assignment at a merge, so a reader never pairs a
+    snapshot with another epoch's delta or with slots cut from another
+    snapshot. ``stacked`` is the default backend's fused impl (``None``: the
+    shards do not unify, the default backend is a host one, or the router
+    serves); ``router`` the routed path (``None`` without a plan)."""
     snapshot: Snapshot
     delta: DeltaBuffer
     stacked: StackedTorchPlex | None
+    router: RoutedStackedLookup | None = None
 
 
 @dataclasses.dataclass
@@ -396,6 +416,8 @@ class PlexService:
                  merge_backoff_cap_s: float = 5.0,
                  keep_generations: int = 1, device=None,
                  build_workers: int | None = None,
+                 devices: Sequence | None = None,
+                 plan: PlacementPlan | int | None = None,
                  _snapshot: Snapshot | None = None, **build_kw):
         self.device = resolve_device(device)
         get_backend(backend)          # fail unknown names at construction
@@ -414,6 +436,25 @@ class PlexService:
             raise ValueError("keep_generations must be >= 1")
         if build_workers is not None and int(build_workers) < 1:
             raise ValueError("build_workers must be >= 1 (None = serial)")
+        # placement slots: every visible card for a card service, the
+        # service's device on the CPU; a list may repeat a device
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" else [self.device])
+        self._devices = [slot_device(d) for d in devices]
+        if not self._devices:
+            raise ValueError("devices must name at least one device")
+        # int: span that many slots; PlacementPlan: pin the first
+        # assignment (re-planned once it no longer matches the snapshot)
+        if isinstance(plan, int):
+            if not 1 <= plan <= len(self._devices):
+                raise ValueError(f"plan={plan} devices requested but the "
+                                 f"device list has {len(self._devices)}")
+        elif plan is not None and not isinstance(plan, PlacementPlan):
+            raise ValueError("plan must be an int device count or a "
+                             "PlacementPlan")
+        self._plan_req = plan
         if fallback is _UNSET:
             fallback = default_fallback(self.device)
         if isinstance(fallback, str) and fallback != "auto":
@@ -509,17 +550,20 @@ class PlexService:
 
     def _new_state(self, snap: Snapshot) -> _ServiceState:
         """Put ``snap``'s planes on the device for the default backend (the
-        fused planes, or every shard's own when the shards do not unify),
-        with a fresh delta and, with ``cache_slots``, an empty cache."""
+        router's slabs when a plan is requested and its slots unify, else
+        the fused planes, or every shard's own when the shards do not
+        unify), with a fresh delta and, with ``cache_slots``, an empty
+        cache."""
         stacked = None
-        if get_backend(self.default_backend).stacked:
+        router = self._make_router(snap)
+        if router is None and get_backend(self.default_backend).stacked:
             stacked = self._stacked_for(snap, self.default_backend)
             if stacked is None:
                 for s in range(snap.n_shards):
                     self._shard_impl(snap, s, self.default_backend)
         return _ServiceState(
             snap, DeltaBuffer(snap.keys, capacity=self._delta_capacity),
-            stacked)
+            stacked, router)
 
     def _stacked_for(self, snap: Snapshot, backend: str):
         """``snap``'s fused impl on ``backend`` at this service's
@@ -553,6 +597,97 @@ class PlexService:
     def fused(self) -> bool:
         """Whether lookups take the fused path (shards unified)."""
         return self._state.stacked is not None
+
+    # -- routed path (distrib) ------------------------------------------------
+    @property
+    def devices(self) -> list[torch.device]:
+        """The placement slots' devices (a device may repeat)."""
+        return list(self._devices)
+
+    @property
+    def plan(self) -> PlacementPlan | None:
+        """The active placement plan (``None`` without a plan, or when the
+        plan's slots did not unify and the single-device paths serve)."""
+        router = self._state.router
+        return router.plan if router is not None else None
+
+    def _make_router(self, snap: Snapshot) -> RoutedStackedLookup | None:
+        """The routed path for ``snap`` from the placement request, or
+        ``None`` when no plan was requested, the default backend has no
+        stacked path, or a slot's shards do not unify. A pinned
+        ``PlacementPlan`` is honoured only while it matches ``snap``'s exact
+        shard table (``plan_matches``: a merge shifts offsets and minima
+        even at an unchanged shard count, and stale boundaries would misbin
+        queries); otherwise the plan is re-derived for the same slot count,
+        scaled by this epoch's live hotness where counted traffic has been
+        seen. A slot that fails to load (``PartitionLoadError``) is dropped:
+        ``device.loss`` is reported and the snapshot is re-planned onto the
+        others; with none left, no router serves."""
+        req = self._plan_req
+        if req is None or not get_backend(self.default_backend).stacked:
+            return None
+        devices = list(self._devices)
+        # the live fold belongs to the epoch before a merge's snapshot: it
+        # informs the plan only while the shard count still matches
+        # (getattr: the constructor plans before the fold exists)
+        live = getattr(self, "_live", None)
+        hot = live_hotness(live[1] if live is not None else None,
+                           snap.n_shards)
+        if isinstance(req, PlacementPlan) and plan_matches(
+                req, snap.offsets, snap.keys.size, snap.shard_min):
+            plan = req
+        else:
+            n_dev = req.n_devices if isinstance(req, PlacementPlan) else req
+            plan = plan_placement(snap, min(int(n_dev), len(devices)),
+                                  hotness=hot)
+        while True:
+            try:
+                parts = partition_stacked(
+                    snap, plan, devices, block=self.block, probe=self.probe,
+                    cache_slots=self.cache_slots,
+                    backend=self.default_backend)
+                break
+            except PartitionLoadError as e:
+                self._note_error(e)
+                _report_incident("device.loss", str(e),
+                                 device_index=int(e.device_index),
+                                 survivors=len(devices) - 1)
+                if len(devices) <= 1:
+                    log.warning("router: %s; no surviving device to "
+                                "re-plan onto, serving without a router", e)
+                    return None
+                dropped = devices.pop(e.device_index)
+                log.warning("router: %s; re-planning onto %d surviving "
+                            "device(s) (dropped %s)", e, len(devices),
+                            dropped)
+                plan = plan_placement(snap, min(plan.n_devices, len(devices)),
+                                      hotness=hot)
+        if parts is None:
+            return None
+        return RoutedStackedLookup(plan, parts, self.block)
+
+    def _routed_lookup(self, state: _ServiceState, q: np.ndarray
+                       ) -> np.ndarray:
+        """Whole-batch routed (merged) lookup: host binning to slots, every
+        slot's micro-batches enqueued on its stream, one sync, host
+        re-permutation; the stats and the counted fold as on the fused
+        path, each slot's counter plane folded at its first shard."""
+        router = state.router
+        epoch = state.snapshot.epoch
+        with TRACE.span("serve.dispatch", path="routed", n=q.size):
+            batch = router.dispatch(q, self._delta_view(state))
+        self.stats.inflight_batches += batch.n_batches
+        self.stats.note(q.size, batch.n_batches, batch.padded_lanes)
+        with TRACE.span("serve.sync", path="routed", n=q.size):
+            out = batch.assemble(q.size)   # the one sync point
+        self._note_synced(list(batch.lane_results()), epoch)
+        self.stats.note_drained(batch.n_batches)
+        if METRICS.enabled:
+            for d in router.plan.active:
+                part = router.parts[d]
+                self._fold_impl_counters(part.impl, epoch,
+                                         base=part.shard_lo)
+        return out
 
     @property
     def delta(self) -> DeltaBuffer:
@@ -659,6 +794,10 @@ class PlexService:
         backend = backend or self.default_backend
         snap = state.snapshot
         if get_backend(backend).stacked:
+            # the slots' impls are the default backend's; another stacked
+            # backend serves on the service's device
+            if state.router is not None and backend == self.default_backend:
+                return self._routed_lookup(state, q)
             st = (state.stacked if backend == self.default_backend
                   else self._stacked_for(snap, backend))
             if st is not None:
@@ -854,7 +993,8 @@ class PlexService:
             "epoch": int(state.snapshot.epoch),
             "n_keys": int(state.snapshot.n_keys + state.delta.net_keys),
             "n_pending": int(state.delta.n_entries),
-            "routed_devices": 0,
+            "routed_devices": state.router.plan.n_devices
+            if state.router is not None else 0,
             "fallback_chain": list(self._chain),
             "breakers": breakers,
             "degraded": any(b["state"] != CLOSED for b in breakers.values())
@@ -921,16 +1061,20 @@ class PlexService:
         return (snap.epoch, np.zeros(snap.n_shards, np.int64),
                 np.zeros(N_PROBE_BUCKETS, np.int64))
 
-    def _fold_hotness(self, shard_counts, probe_hist, epoch: int) -> None:
-        """Fold one counter plane (per-shard routed counts and the probe
-        histogram) of a dispatch that ran against the snapshot of ``epoch``
-        into that epoch's live estimate and mirror it into ``METRICS``. A
-        fold of an older epoch is dropped; one that races a publish adds
-        into the fold it checked, which the publish discards."""
+    def _fold_hotness(self, shard_counts, probe_hist, epoch: int,
+                      base: int = 0) -> None:
+        """Fold one counter plane (per-shard routed counts of the shards
+        from ``base`` on, and the probe histogram) of a dispatch that ran
+        against the snapshot of ``epoch`` into that epoch's live estimate
+        and mirror it into ``METRICS``. A fold of an older epoch is
+        dropped; one that races a publish adds into the fold it checked,
+        which the publish discards."""
         live_epoch, hot, hist_live = self._live
         if live_epoch != epoch:
             return
-        counts = np.asarray(shard_counts, np.int64)
+        counts = np.zeros(hot.size, np.int64)
+        part = np.asarray(shard_counts, np.int64)
+        counts[base:base + part.size] = part
         hist = np.asarray(probe_hist, np.int64)
         hot += counts
         hist_live += hist
@@ -938,12 +1082,14 @@ class PlexService:
         METRICS.vector("serve.shard.routed", hot.size).add(counts)
         METRICS.vector("serve.probe.trips", N_PROBE_BUCKETS).add(hist)
 
-    def _fold_impl_counters(self, st: StackedTorchPlex, epoch: int) -> None:
+    def _fold_impl_counters(self, st: StackedTorchPlex, epoch: int,
+                            base: int = 0) -> None:
         """Read ``st``'s counter plane (if a counted dispatch ran) into the
-        live fold of ``epoch``, the epoch of the snapshot ``st`` serves."""
+        live fold of ``epoch``, the epoch of the snapshot ``st`` serves;
+        ``st``'s first shard is the snapshot's shard ``base``."""
         taken = st.take_counters()
         if taken is not None:
-            self._fold_hotness(taken[0], taken[1], epoch)
+            self._fold_hotness(taken[0], taken[1], epoch, base)
 
     # -- updates ------------------------------------------------------------
     def insert(self, keys: np.ndarray) -> int:
@@ -1474,9 +1620,9 @@ class PlexService:
 
         Full blocks launch at once (asynchronously); a remainder launches
         once the oldest queued query has waited ``max_delay_s``, by a timer
-        thread if no further call comes. On the per-shard path the ticket
-        is filled at once. With ``max_queue > 0`` a submit that would pass
-        the bound is refused: ``overflow="reject"`` raises
+        thread if no further call comes. On the per-shard and routed paths
+        the ticket is filled at once. With ``max_queue > 0`` a submit that
+        would pass the bound is refused: ``overflow="reject"`` raises
         ``QueueFullError``, ``"shed"`` returns a ticket carrying it."""
         q = np.ascontiguousarray(q, dtype=np.uint64)
         ticket = LookupTicket(self, q.size)
@@ -1730,11 +1876,15 @@ class PlexService:
         serving ``state`` can take: on the fused path uncounted (cached,
         with ``cache_slots``) and counted, each delta-free and merged at the
         delta capacity (a zero-weight entry, which changes no result); on
-        the per-shard path every shard's impl, delta-free (its delta folds
-        on the host). Not served traffic: no stats, and the warm counts are
-        discarded."""
+        the routed path the same on every slot's stream; on the per-shard
+        path every shard's impl, delta-free (its delta folds on the host).
+        Not served traffic: no stats, and the warm counts are discarded."""
         backend = backend or self.default_backend
         snap = state.snapshot
+        if state.router is not None and backend == self.default_backend:
+            state.router.warmup(np.uint64(snap.keys[0]),
+                                self._delta_capacity)
+            return
         q = torch.from_numpy(to_biased(snap.keys[:1])).to(self.device)
         st = (state.stacked if backend == self.default_backend
               else self._stacked_for(snap, backend))

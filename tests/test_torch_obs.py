@@ -1,7 +1,7 @@
 """Observability of the port: the metrics registry, span tracing, the live
 shard-hotness export, the flight recorder, the SLO watchdog and incident
 bundles — ``tests/test_obs.py``'s tests whose subject the port has (every
-one but the routed mesh's and the benchmarks' helpers), then parity with
+one but the benchmarks' helpers), then parity with
 the reference on the same operations.
 
 The port's ``PlexService`` runs with ``device="cpu"`` (the ``cuda``
@@ -394,6 +394,61 @@ def test_host_backend_hotness_fold():
         assert svc.probe_trip_hist().sum() == 0
     finally:
         svc.close()
+
+
+@pytest.mark.parametrize("n_slots", [1, 4])
+def test_routed_mesh_hotness(n_slots):
+    """The routed path (``plan=``, slots repeating the CPU): each slot's
+    counter plane folds at its first shard's global offset, so the live
+    hotness equals ``np.bincount(svc.route(q))`` and the reference's
+    ``plan=1`` service's; the routed dispatch and sync spans carry
+    ``path="routed"``."""
+    keys = _keys(40_000)
+    svc = PlexService(keys, 32, n_shards=4, plan=n_slots,
+                      devices=[torch.device("cpu")] * n_slots)
+    rsvc = RService(keys, 32, n_shards=4, plan=1)
+    try:
+        assert svc.plan is not None and svc.plan.n_devices == n_slots
+        enable_observability()
+        R.enable_observability()
+        q = np.random.default_rng(6).choice(keys, 5000)
+        got = svc.lookup(q)
+        assert np.array_equal(got, np.searchsorted(keys, q, "left"))
+        assert np.array_equal(got, rsvc.lookup(q, backend="jnp"))
+        want = np.bincount(svc.route(q), minlength=4)
+        assert np.array_equal(svc.live_hotness(), want)
+        assert np.array_equal(rsvc.live_hotness(), want)
+        routed = [e for e in TRACE.events()
+                  if e["name"] in ("serve.dispatch", "serve.sync")]
+        assert [e["attrs"]["path"] for e in routed] == ["routed"] * 2
+    finally:
+        svc.close()
+        rsvc.close()
+
+
+def test_placement_plan_event_and_counters_parity():
+    """A (re)plan records the reference's ``placement.plan`` event and
+    ``placement.*`` instruments, attribute for attribute."""
+    from repro.core import Snapshot as RSnap
+    from repro.distrib import plan_placement as r_plan_placement
+    from repro_torch.core import Snapshot
+    from repro_torch.distrib import plan_placement
+    keys = _keys(30_000)
+    enable_observability()
+    R.enable_observability()
+    plan_placement(Snapshot.build(keys.copy(), 32, n_shards=5,
+                                  device="cpu"), 3)
+    r_plan_placement(RSnap.build(keys.copy(), 32, n_shards=5), 3)
+    ev = [e for e in TRACE.events() if e["name"] == "placement.plan"]
+    rev = [e for e in R.TRACE.events() if e["name"] == "placement.plan"]
+    assert len(ev) == len(rev) == 1
+    assert ev[0]["attrs"] == rev[0]["attrs"]
+    snap, rsnap = METRICS.snapshot(), R.METRICS.snapshot()
+    for kind in ("counters", "gauges"):
+        mine = {k: v for k, v in snap[kind].items()
+                if k.startswith("placement.")}
+        assert mine and mine == {k: v for k, v in rsnap[kind].items()
+                                 if k.startswith("placement.")}
 
 
 # -- spans through the pipeline ----------------------------------------------
@@ -1126,7 +1181,10 @@ def test_observe_drill_runs_on_the_cpu(tmp_path):
 
 NEW_MODULES = ("obs/__init__.py", "obs/trace.py", "obs/export.py",
                "obs/recorder.py", "obs/incident.py", "obs/slo.py",
-               "core/parallel_build.py", "launch/observe.py")
+               "core/parallel_build.py", "launch/observe.py",
+               "distrib/__init__.py", "distrib/placement.py",
+               "distrib/partition.py", "distrib/routed_lookup.py",
+               "distrib/loader.py")
 
 
 def _imported_names(path: pathlib.Path) -> set[str]:
