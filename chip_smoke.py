@@ -54,6 +54,11 @@ card, then drives the port's three paths:
   load; ``open`` falling back to the last known good generation and a
   merge whose build fails, with an incident manager writing a bundle for
   each kind and the breaker's transitions traced (``chaos``);
+* the example drills: ``main`` of each ``repro_torch.launch`` drill
+  (quickstart, save_open, mesh_serve, chaos_drill, serve_paged) on the
+  card, each returning 0 under its own assertions, with its seconds and
+  its launches of K1, the fused ``window_probe`` and K5; quickstart must
+  launch ``window_probe``, save_open and mesh_serve K1 (``examples``);
 * the per-index path (K2/K3 fused with K4 in one launch): ``LearnedIndex.
   lookup`` over 2^24 keys of each SOSD dataset (the most one index's float32
   rank plane holds), K2/K3 alone, K4 alone and the fused launch each held
@@ -2596,6 +2601,61 @@ def default_fallback_raises(device, keys, q) -> list:
 
 # ---------------------------------------------------------------- index ----
 
+# the five example drills (repro_torch.launch) and their arguments on the
+# card: none, so each runs at the reference example's defaults
+EXAMPLES = (("quickstart", []), ("save_open", []), ("mesh_serve", []),
+            ("chaos_drill", []), ("serve_paged", []))
+# the kernel launches each drill must make on the card
+EXAMPLE_NEEDS = {"quickstart": "window_probe", "save_open": "stacked_lookup",
+                 "mesh_serve": "stacked_lookup"}
+
+
+def phase_examples(device, card: str) -> dict:
+    """Every ``repro_torch.launch`` example drill through its ``main`` on
+    ``device``, as a user runs it (``python -m repro_torch.launch.<name>``),
+    its outputs in a temporary directory. Each must return 0 (its own
+    assertions: ranks equal searchsorted, the reopened service equal to the
+    live one, the incident contract, the swap-in); the launches of K1, the
+    fused ``window_probe`` and K5 are counted from 0 around each, and
+    quickstart must launch ``window_probe``, save_open and mesh_serve K1."""
+    import importlib
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import segment_lookup as SEG
+    from repro_torch.kernels import stacked_lookup as SL
+    out = {}
+    for name, args in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.launch.{name}")
+        tmp = pathlib.Path(tempfile.mkdtemp(prefix=f"plex-{name}-"))
+        argv = list(args) + ["--device", str(device)]
+        if name in ("save_open", "mesh_serve", "chaos_drill"):
+            argv += ["--dir", str(tmp)]
+        SL.launches = SEG.fused_launches = FA.launches = 0
+        t0 = time.perf_counter()
+        try:
+            rc = mod.main(argv)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        row = {"rc": rc, "seconds": time.perf_counter() - t0,
+               "launches": {"stacked_lookup": SL.launches,
+                            "window_probe": SEG.fused_launches,
+                            "flash_attention": FA.launches},
+               "argv": argv}
+        out[name] = row
+        check(rc == 0, f"examples: {name} returned {rc}")
+        need = EXAMPLE_NEEDS.get(name)
+        if need is not None and device.type == "cuda":
+            check(row["launches"][need] > 0,
+                  f"examples: {name} made no {need} launch")
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    emit("examples", card=card, **out)
+    return out
+
+
 def index_bound_bytes(px, q: np.ndarray, kernel: str) -> int:
     """Bytes one 2^20-query launch of ``kernel`` must move at least, from
     this launch's data: K2/K3 read each query's 8 B key and write its 4 B
@@ -3565,6 +3625,8 @@ def main(argv=None) -> int:
     lap("merge_background")
     chaos = phase_chaos(device, args.seed, CHAOS_KEYS, QUERIES)
     lap("chaos")
+    phase_examples(device, info["card"])
+    lap("examples")
     index = phase_index(device, args.seed, args.index_keys, QUERIES,
                         split_lib)
     lap("index")

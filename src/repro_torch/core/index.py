@@ -35,6 +35,7 @@ pool (``core.parallel_build``), bit-identical to the serial build.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Sequence
 
@@ -90,6 +91,14 @@ class LearnedIndex:
     @property
     def size_bytes(self) -> int:
         return self.plex.size_bytes
+
+    @property
+    def stats(self) -> BuildStats:
+        return self.plex.stats
+
+    @property
+    def name(self) -> str:
+        return "LearnedIndex"
 
     # -- dispatch ------------------------------------------------------------
     def backend_impl(self, backend: str | None = None):
@@ -249,6 +258,24 @@ class Snapshot:
     @property
     def n_keys(self) -> int:
         return int(self.keys.size)
+
+    @property
+    def size_bytes(self) -> int:
+        """The shards' index bytes (spline + layer), the paper's size
+        metric summed over the shards."""
+        return sum(px.size_bytes for px in self.shards)
+
+    @property
+    def name(self) -> str:
+        return "Snapshot"
+
+    @functools.cached_property
+    def indexes(self) -> tuple[LearnedIndex, ...]:
+        """Each shard's PLEX as a ``LearnedIndex`` on this snapshot's device
+        (the reference's ``Snapshot.shards``: per-shard ``keys``, ``eps``,
+        ``size_bytes``, ``stats``), wrapped once, with no rebuild."""
+        return tuple(LearnedIndex(plex=px, device=self.device)
+                     for px in self.shards)
 
     def route(self, q: np.ndarray) -> np.ndarray:
         """Shard id per query (largest shard whose min key is <= q)."""

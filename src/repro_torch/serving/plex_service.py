@@ -131,7 +131,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
-from ..core.index import Snapshot
+from ..core.index import LearnedIndex, Snapshot
 from ..device import resolve_device
 from ..distrib.partition import partition_stacked, slot_device
 from ..distrib.placement import (PlacementPlan, live_hotness, plan_matches,
@@ -565,6 +565,18 @@ class PlexService:
             snap, DeltaBuffer(snap.keys, capacity=self._delta_capacity),
             stacked, router)
 
+    def stacked_impl(self, state: _ServiceState | None = None,
+                     backend: str | None = None):
+        """The fused shard-major stacked path of ``state``'s snapshot (the
+        current one by default) on ``backend`` (the service default when
+        omitted), or ``None`` when the shards' static parameters could not
+        be unified (per-shard fallback). Callers that already captured a
+        state MUST pass it, so a concurrent swap can never pair one
+        snapshot's planes with another epoch's delta."""
+        state = state if state is not None else self._state
+        return self._stacked_for(state.snapshot,
+                                 backend or self.default_backend)
+
     def _stacked_for(self, snap: Snapshot, backend: str):
         """``snap``'s fused impl on ``backend`` at this service's
         configuration (cached by the snapshot; ``None``: the shards do not
@@ -579,6 +591,34 @@ class PlexService:
     @property
     def snapshot(self) -> Snapshot:
         return self._state.snapshot
+
+    @property
+    def keys(self) -> np.ndarray:
+        """The *snapshot* key array (immutable). See ``logical_keys()`` for
+        the merged view including pending updates."""
+        return self._state.snapshot.keys
+
+    @property
+    def offsets(self) -> np.ndarray:
+        return self._state.snapshot.offsets
+
+    @property
+    def shard_min(self) -> np.ndarray:
+        return self._state.snapshot.shard_min
+
+    @property
+    def shards(self) -> Sequence[LearnedIndex]:
+        """Each shard of the snapshot as a ``LearnedIndex`` (its ``keys``,
+        ``eps``, ``size_bytes`` and ``stats``)."""
+        return self._state.snapshot.indexes
+
+    @property
+    def size_bytes(self) -> int:
+        return self._state.snapshot.size_bytes
+
+    @property
+    def name(self) -> str:
+        return "PlexService"
 
     @property
     def n_shards(self) -> int:

@@ -1295,11 +1295,14 @@ def _drive_service(svc, keys, fresh):
 def test_service_span_sequence_parity():
     """The same keys, lookups, submit/drain, inserts, deletes and a merge
     on both services emit the same span sequence: names, non-timing
-    attributes and nesting, event for event."""
+    attributes and nesting, event for event. The queue's deadline is far
+    beyond the test, so ``drain()`` flushes the remainder on both services
+    (a deadline timer firing first on one of them would add its flush's
+    spans and change ``serve.drain``'s ``queued``)."""
     keys = _parity_keys()
     fresh = np.unique(np.random.default_rng(4).integers(
         0, 2**53, 400, dtype=np.uint64))
-    kw = dict(n_shards=2, block=512, merge_threshold=300)
+    kw = dict(n_shards=2, block=512, merge_threshold=300, max_delay_s=60.0)
     enable_observability()
     R.enable_observability()
     port = PlexService(keys.copy(), 32, backend="torch", **kw)
