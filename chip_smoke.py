@@ -77,7 +77,18 @@ card, then drives the port's three paths:
   its first rows held to float64; then timed again unrecorded) and a
   float32 check of prefill against token-by-token decode (``lm_prefill``);
   then the ``ServeEngine`` over ten requests whose position groups split
-  (``lm_serve``).
+  (``lm_serve``);
+* the MoE family (``lm_moe``): deepseek-v2 at full width cut to 3 layers
+  (MLA, the dense layer 0 and two MoE layers of 160 experts), a 4,096-token
+  bf16 prefill (the MLA attention's share from CUDA events; each MoE
+  layer's dropped pairs and largest expert load against its capacity), the
+  float32 prefill-against-decode check with the naive and the absorbed MLA
+  decode and the two decodes against each other, and the ``ServeEngine``
+  with the absorbed decode swapping latent pages; then qwen2-moe at full
+  width and depth, a 32,768-token prefill with one K5 launch a layer, all
+  on the Hopper kernel (the first and last replayed through the plain
+  version, K5 timed at that shape beside SDPA), the same float32 check and
+  the engine.
 
 Each phase prints one JSON line, and ``phase_seconds`` each phase's host
 wall time; the ``kernels`` line carries each kernel's
@@ -3199,17 +3210,25 @@ def phase_attention(device, seed: int,
 
 
 class recorded_attention:
-    """Within the block, every K5 call the model makes is passed through
-    and its inputs and output kept in ``calls`` (references, no copies), to
-    be replayed through the plain version afterwards."""
+    """Within the block, every K5 call the model makes is passed through;
+    ``dtypes`` gets each call's q dtype (which picks the kernel), and the
+    inputs and output of the calls numbered in ``keep`` (default: all) are
+    kept in ``calls`` as (number, q, k, v, kwargs, out), references and no
+    copies, to be replayed through the plain version afterwards."""
+
+    def __init__(self, keep=None):
+        self.keep = keep
 
     def __enter__(self):
         from repro_torch.layers import attention as A
-        self.calls, self._orig = [], A.flash_attention_fwd
+        self.calls, self.dtypes, self._orig = [], [], A.flash_attention_fwd
 
         def record(q, k, v, **kw):
             out = self._orig(q, k, v, **kw)
-            self.calls.append((q, k, v, kw, out))
+            i = len(self.dtypes)
+            self.dtypes.append(q.dtype)
+            if self.keep is None or i in self.keep:
+                self.calls.append((i, q, k, v, kw, out))
             return out
         A.flash_attention_fwd = record
         return self
@@ -3231,6 +3250,82 @@ def timed(fn, device) -> tuple[object, float]:
     return out, time.perf_counter() - t0
 
 
+def replay_k5_launch(call, phase: str) -> dict:
+    """One recorded K5 launch replayed in full through the plain version at
+    the kernel's key tile. The gate is the tolerance against the replay
+    that rounds scores as the kernel does (bf16 on the card: tensor-core
+    scores); the float32-score plain version's distance is reported. The
+    first rows of the kernel and both replays are held to the exact
+    function in float64. Emits the row as ``phase`` and returns it."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    i, q, k, v, kw, got = call
+    dtype = str(q.dtype).split(".")[1]
+    tensor_core = q.dtype == torch.bfloat16 and q.device.type == "cuda"
+    block_k = FA.kernel_block_k(q.dtype, q.shape[-1])
+    plain = FA.flash_attention_plain(q, k, v, block_k=block_k, **kw)
+    replay = (plain_tensor_core_scores(q, k, v, block_k=block_k, **kw)
+              if tensor_core else plain)
+    err, ok = attention_err(got, replay, dtype)
+    plain_err, _ = attention_err(got, plain, dtype)
+    causal = kw.get("causal", True)
+    rows = min(LM_EXACT_ROWS, q.shape[1])
+    keys = rows if causal else k.shape[1]
+    outs = dict(kernel=got[:, :rows], plain=plain[:, :rows])
+    if tensor_core:
+        outs["tensor_core_plain"] = replay[:, :rows]
+    row = dict(launch=i, block_k=block_k, max_abs_err=err,
+               tol=ATTN_TOL[dtype], within_tol=ok,
+               replay="tensor-core scores" if tensor_core else "plain",
+               plain_max_abs_err=plain_err,
+               plain_outside_tol=outside_tol(got, plain, dtype),
+               exact_f64_rows=rows,
+               exact_f64_max_mean_err=exact_errors(
+                   q[:, :rows], k[:, :keys], v[:, :keys], causal, **outs))
+    emit(phase, **row)
+    check(ok, f"K5 launch {i} differs from its replay by {err} "
+              f"(tolerance {ATTN_TOL[dtype]})")
+    if q.dtype == torch.bfloat16:
+        check_exact(row["exact_f64_max_mean_err"], f"K5 launch {i}")
+    return row
+
+
+def replay_summary(replays: list) -> dict:
+    """The worst of a prefill's replayed launches."""
+    return dict(max_abs_err=max(r["max_abs_err"] for r in replays),
+                tol=replays[0]["tol"], block_k=replays[0]["block_k"],
+                replay=replays[0]["replay"],
+                plain_max_abs_err=max(r["plain_max_abs_err"]
+                                      for r in replays),
+                plain_outside_tol=sum(r["plain_outside_tol"]
+                                      for r in replays))
+
+
+def k5_times(q, k, v, kw, device) -> dict:
+    """K5 on one launch's inputs beside its plain version (at the kernel's
+    key tile), SDPA and its bound, each timed on the card."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    b, sq, h, d = q.shape
+    causal = kw.get("causal", True)
+    bound_ms, bound_by = attention_bound_ms(q, k, causal)
+    flops = attention_flops(b, sq, k.shape[1], h, d, causal)
+    ms = device_ms(lambda: FA.flash_attention_fwd(q, k, v, **kw), device,
+                   reps=3)
+    plain_ms = device_ms(lambda: FA.flash_attention_plain(
+        q, k, v, block_k=FA.kernel_block_k(q.dtype, d), **kw), device,
+        reps=1)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=causal, enable_gqa=True), device, reps=3)
+    return dict(shape=[b, sq, h, k.shape[2], d], kernel_ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library="F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True)",
+                bound_ms=bound_ms, bound_by=bound_by,
+                kernel_tflops=flops / (ms * 1e9))
+
+
 def phase_lm_prefill(device, seed: int, seq: int, cfg=None) -> tuple:
     """minitron-4b at full width, random weights from ``seed``: a batched
     prefill of ``seq`` tokens through ``make_prefill_step`` whose K5 launches
@@ -3245,7 +3340,6 @@ def phase_lm_prefill(device, seed: int, seq: int, cfg=None) -> tuple:
     Returns the phase's record and (model, params) for the serve phase."""
     import dataclasses
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import Model
@@ -3272,58 +3366,13 @@ def phase_lm_prefill(device, seed: int, seq: int, cfg=None) -> tuple:
                                   device)
     check(len(rec.calls) == cfg.n_layers,
           f"{len(rec.calls)} attention calls for {cfg.n_layers} layers")
-    dtype = str(rec_logits.dtype).split(".")[1]
-    qdt = rec.calls[0][0].dtype            # the dtype that picks the kernel
+    qdt = rec.calls[0][1].dtype            # the dtype that picks the kernel
     kernel = FA.KERNELS[qdt]
-    tensor_core = qdt == torch.bfloat16 and device.type == "cuda"
-    worst = 0.0
-    replays = []
-    for i, call in enumerate(rec.calls):
-        # each launch replayed in full: the gate is the tolerance against the
-        # replay that rounds scores as the kernel does; the float32-score
-        # plain version's distance is reported. Its first rows, and the
-        # replays', held to the exact function in float64
-        q, k, v, kw, got = call
-        block_k = FA.kernel_block_k(qdt, q.shape[-1])
-        plain = FA.flash_attention_plain(q, k, v, block_k=block_k, **kw)
-        replay = (plain_tensor_core_scores(q, k, v, block_k=block_k, **kw)
-                  if tensor_core else plain)
-        err, ok = attention_err(got, replay, dtype)
-        plain_err, _ = attention_err(got, plain, dtype)
-        causal = kw.get("causal", True)
-        rows = min(LM_EXACT_ROWS, q.shape[1])
-        keys = rows if causal else k.shape[1]
-        outs = dict(kernel=got[:, :rows], plain=plain[:, :rows])
-        if tensor_core:
-            outs["tensor_core_plain"] = replay[:, :rows]
-        row = dict(launch=i, block_k=block_k, max_abs_err=err,
-                   tol=ATTN_TOL[dtype], within_tol=ok,
-                   plain_max_abs_err=plain_err,
-                   plain_outside_tol=outside_tol(got, plain, dtype),
-                   exact_f64_rows=rows,
-                   exact_f64_max_mean_err=exact_errors(
-                       q[:, :rows], k[:, :keys], v[:, :keys], causal,
-                       **outs))
-        emit("lm_prefill_replay", **row)
-        check(ok, f"K5 launch {i} of the prefill differs from its replay "
-                  f"by {err} (tolerance {ATTN_TOL[dtype]})")
-        if qdt == torch.bfloat16:
-            check_exact(row["exact_f64_max_mean_err"], f"K5 launch {i}")
-        worst = max(worst, err)
-        replays.append(row)
-        del plain, replay, outs
-    del rec, call, got
-    b, sq, h, d = q.shape
-    bound_ms, bound_by = attention_bound_ms(q, k, causal)
-    flops = attention_flops(b, sq, k.shape[1], h, d, causal)
-    ms = device_ms(lambda: FA.flash_attention_fwd(q, k, v, **kw), device,
-                   reps=3)
-    plain_ms = device_ms(lambda: FA.flash_attention_plain(
-        q, k, v, block_k=FA.kernel_block_k(qdt, d), **kw), device, reps=1)
-    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=causal, enable_gqa=True), device, reps=3)
-    del qs, ks, vs
+    replays = [replay_k5_launch(call, "lm_prefill_replay")
+               for call in rec.calls]
+    _, q, k, v, kw, _ = rec.calls[-1]
+    del rec
+    times = k5_times(q, k, v, kw, device)
     # the float32 SIMT kernel at the same shape: the earlier design's time
     q, k, v = (t.float() for t in (q, k, v))
     simt_f32_ms = device_ms(lambda: FA.flash_attention_fwd(q, k, v, **kw),
@@ -3354,22 +3403,14 @@ def phase_lm_prefill(device, seed: int, seq: int, cfg=None) -> tuple:
                ttft_s=prefill_s,
                prefill_tokens_per_s=seq / prefill_s, launches=launches,
                kernel=kernel, launches_expected=cfg.n_layers,
-               max_abs_err=worst, tol=ATTN_TOL[dtype],
-               block_k=FA.kernel_block_k(qdt, d),
-               replay="tensor-core scores" if tensor_core else "plain",
-               plain_max_abs_err=max(r["plain_max_abs_err"]
-                                     for r in replays),
-               plain_outside_tol=sum(r["plain_outside_tol"]
-                                     for r in replays),
-               kernel_ms=ms, plain_ms=plain_ms, simt_f32_ms=simt_f32_ms,
-               library_ms=library_ms, library="F.scaled_dot_product_attention"
-               "(is_causal=True, enable_gqa=True)", bound_ms=bound_ms,
-               bound_by=bound_by, kernel_tflops=flops / (ms * 1e9),
-               kernel_share_of_prefill=launches * ms / (prefill_s * 1e3),
+               **replay_summary(replays), **times,
+               simt_f32_ms=simt_f32_ms,
+               kernel_share_of_prefill=(launches * times["kernel_ms"]
+                                        / (prefill_s * 1e3)),
                max_memory_allocated=peak,
                logits_equal_recorded=bool(torch.equal(logits, rec_logits)))
     emit("lm_prefill", **out)
-    out["check"] = lm_prefill_check(device, dataclasses.replace(
+    out["check"], _ = lm_prefill_check(device, dataclasses.replace(
         cfg, dtype="float32"), params, tokens[:, :LM_CHECK_TOKENS])
     return out, model, params
 
@@ -3385,11 +3426,34 @@ def _leaves(tree):
         yield tree
 
 
-def lm_prefill_check(device, cfg32, params, tokens) -> dict:
+def logit_agreement(want, got, tol: float = 1e-3) -> dict:
+    """Two [S, V] float32 logit tables: the same greedy argmax in every
+    row, and every logit within ``tol`` of its row's largest |logit| (the
+    first rows that miss are listed)."""
+    import torch
+    scale = want.abs().amax(dim=-1)
+    rel = ((want - got).abs().amax(dim=-1) / scale)
+    same = want.argmax(-1) == got.argmax(-1)
+    out = dict(tokens=want.shape[0], argmax_equal=bool(same.all()),
+               max_rel_err=float(rel.max()), tol=tol,
+               max_abs_logit=float(scale.max()))
+    if not same.all() or float(rel.max()) > tol:
+        rows = torch.nonzero(~same | (rel > tol)).flatten().tolist()[:4]
+        out["misses"] = [dict(
+            pos=r, rel_err=float(rel[r]),
+            want_top2=[float(x) for x in want[r].topk(2).values],
+            got_top2=[float(x) for x in got[r].topk(2).values])
+            for r in rows]
+    return out
+
+
+def lm_prefill_check(device, cfg32, params, tokens,
+                     phase: str = "lm_prefill_check") -> tuple:
     """float32 (TF32 off): logits of every position from the batched
-    forward (K5) against ``serve_step`` run token by token (the decode path,
-    no K5): the same greedy argmax, and every logit within 1e-3 of its
-    row's largest |logit|."""
+    forward against ``serve_step`` run token by token (the decode path):
+    the same greedy argmax, and every logit within 1e-3 of its row's
+    largest |logit|. Returns the record (emitted as ``phase``) and the
+    decode logits [S, V]."""
     import torch
     from repro_torch.models import Model, init_cache
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3404,24 +3468,11 @@ def lm_prefill_check(device, cfg32, params, tokens) -> dict:
         lg, cache = m32.serve_step(params, cache, tokens[:, t:t + 1], t)
         dec.append(lg[0].float())
     dec = torch.stack(dec)
-    scale = full.abs().amax(dim=-1)
-    rel = ((full - dec).abs().amax(dim=-1) / scale)
-    same = full.argmax(-1) == dec.argmax(-1)
-    out = dict(tokens=n, dtype="float32", tf32=False,
-               argmax_equal=bool(same.all()),
-               max_rel_err=float(rel.max()), tol=1e-3,
-               max_abs_logit=float(scale.max()))
-    if not same.all() or float(rel.max()) > 1e-3:
-        rows = torch.nonzero(~same | (rel > 1e-3)).flatten().tolist()[:4]
-        out["misses"] = [dict(
-            pos=r, rel_err=float(rel[r]),
-            forward_top2=[float(x) for x in full[r].topk(2).values],
-            decode_top2=[float(x) for x in dec[r].topk(2).values])
-            for r in rows]
-    emit("lm_prefill_check", **out)
+    out = dict(dtype="float32", tf32=False, **logit_agreement(full, dec))
+    emit(phase, **out)
     check(out["argmax_equal"] and out["max_rel_err"] <= 1e-3,
           f"prefill and decode disagree: {out}")
-    return out
+    return out, dec
 
 
 def phase_lm_serve(device, seed: int, model, params,
@@ -3541,6 +3592,366 @@ def profile_serve_step(device, model, params) -> dict:
                                 for (f, line, fn), (_, _, tt, _, _) in rows])
 
 
+# ------------------------------------------------------------ the MoE ----
+
+MOE_DEEPSEEK = "deepseek-v2-236b"
+MOE_QWEN = "qwen2-moe-a2.7b"
+DEEPSEEK_LAYERS = 3            # the dense layer 0 and two MoE layers
+DEEPSEEK_PREFILL_SEQ = 4096    # the plain MLA attention's scores, below
+MOE_SERVE_REQUESTS = 8
+# what the qwen2-moe prefill of 32,768 tokens needs beside its weights:
+# the MoE dispatch (about 3 GB), two recorded K5 launches and their
+# replays, SDPA's copies and the allocator's slack
+MOE_PREFILL_WORKSPACE = 12 << 30
+
+
+class recorded_routing:
+    """Within the block, every ``layers.moe.route`` call is passed through
+    and its routing kept in ``routings`` (references to device tensors, no
+    sync), one a MoE layer in layer order."""
+
+    def __enter__(self):
+        from repro_torch.layers import moe as M
+        self.routings, self._orig = [], M.route
+
+        def record(p, x, cfg):
+            r = self._orig(p, x, cfg)
+            self.routings.append(r)
+            return r
+        M.route = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import moe as M
+        M.route = self._orig
+
+
+class timed_mla_attention:
+    """Within the block, every MLA attention call
+    (``layers.mla.flash_attention``) is bracketed by CUDA events (host
+    clock on the CPU); ``ms()`` sums them after a sync."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        import torch
+        from repro_torch.layers import mla as M
+        self.spans, self._orig = [], M.flash_attention
+        cuda = self.device.type == "cuda"
+
+        def mark():
+            if not cuda:
+                return time.perf_counter()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+
+        def timed_call(*a, **kw):
+            t0 = mark()
+            out = self._orig(*a, **kw)
+            self.spans.append((t0, mark()))
+            return out
+        self.mark = mark
+        M.flash_attention = timed_call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import mla as M
+        M.flash_attention = self._orig
+
+    def ms(self, a, b) -> float:
+        if self.device.type != "cuda":
+            return (b - a) * 1e3
+        b.synchronize()
+        return a.elapsed_time(b)
+
+
+def routing_stats(cfg, routings) -> list:
+    """Each MoE layer's routing of a call: its dropped (token, slot) pairs
+    and its largest expert load against the capacity."""
+    layers = [i for i in range(cfg.n_layers) if cfg.layer_kind(i)[1] == "moe"]
+    check(len(routings) == len(layers),
+          f"{len(routings)} routings for {len(layers)} MoE layers")
+    rows = []
+    for i, r in zip(layers, routings):
+        load = r.idx.reshape(-1).bincount(minlength=cfg.n_experts)
+        rows.append(dict(layer=i, tokens=r.idx.shape[0], cap=r.cap,
+                         dropped=int((~r.keep).sum()),
+                         max_load=int(load.max()),
+                         mean_load=r.idx.numel() / cfg.n_experts))
+    return rows
+
+
+def moe_prefill(device, cfg, prefill, params, tokens) -> dict:
+    """The main path of one MoE model: a bf16 prefill through
+    ``make_prefill_step``, K5's count set to 0 just before and read just
+    after; the kernel each launch took (by q's dtype), time to first token,
+    peak memory and each MoE layer's routing."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    with recorded_attention(keep=()) as att, recorded_routing() as rr:
+        FA.launches = 0
+        logits, ttft_s = timed(lambda: prefill(params, {"tokens": tokens}),
+                               device)
+        launches = FA.launches
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+    check(tuple(logits.shape) == (1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{cfg.name}: prefill logits not finite or misshapen")
+    seq = tokens.shape[1]
+    return dict(seq=seq, batch=1, ttft_s=ttft_s,
+                prefill_tokens_per_s=seq / ttft_s, k5_launches=launches,
+                k5_calls=len(att.dtypes),
+                k5_kernels=sorted({FA.KERNELS[dt] for dt in att.dtypes}),
+                max_memory_allocated=peak,
+                routing=routing_stats(cfg, rr.routings))
+
+
+def moe_serve(device, seed: int, model, params, prompt: int,
+              max_new: int) -> dict:
+    """``ServeEngine`` at batch 4, max_seq 512: 8 aligned requests of
+    ``prompt`` tokens and ``max_new`` new ones. Every request finishes with
+    its tokens, and the page table returns each swapped page exactly (MLA:
+    the latent ``c``); the absorbed MLA decode is counted where the config
+    asks for it."""
+    from repro_torch.layers import mla as M
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(seed + 7)
+    vocab = model.cfg.vocab
+    eng = ServeEngine(model, params, batch_size=LM_SERVE_BATCH,
+                      max_seq=LM_SERVE_MAX_SEQ, device=device)
+    stored: dict = {}
+    store = eng.kv_store.store
+
+    def keep(seq_id, kv):
+        stored[seq_id] = kv.copy()
+        return store(seq_id, kv)
+    eng.kv_store.store = keep
+    for i in range(MOE_SERVE_REQUESTS):
+        eng.submit(Request(seq_id=i, prompt=rng.integers(
+            0, vocab, prompt).astype(np.int32), max_new=max_new))
+    absorbed = [0]
+    orig = M._decode_absorbed
+
+    def count(*a):
+        absorbed[0] += 1
+        return orig(*a)
+    M._decode_absorbed = count
+    try:
+        fin, run_s = timed(eng.run, device)
+    finally:
+        M._decode_absorbed = orig
+    fin = {f.seq_id: f for f in fin}
+    check(sorted(fin) == list(range(MOE_SERVE_REQUESTS)),
+          f"{model.cfg.name}: finished {sorted(fin)}")
+    for sid, f in fin.items():
+        check(f.tokens.size == max_new
+              and bool(((f.tokens >= 0) & (f.tokens < vocab)).all()),
+              f"{model.cfg.name}: request {sid}: {f.tokens.size} tokens")
+        check(np.array_equal(eng.kv_store.fetch(sid, stored[sid].shape[0]),
+                             stored[sid]),
+              f"{model.cfg.name}: request {sid}: fetched pages differ")
+    pages = sum(f.swapped_pages for f in fin.values())
+    check(len(eng.kv_store.table) == pages, "page table misses pages")
+    latent = "c" in eng.cache["seg0"]["blk0"]
+    check((absorbed[0] > 0) == (latent and model.cfg.mla_absorb),
+          f"{model.cfg.name}: {absorbed[0]} absorbed MLA decode calls")
+    generated = MOE_SERVE_REQUESTS * max_new
+    return dict(requests=MOE_SERVE_REQUESTS, batch=LM_SERVE_BATCH,
+                max_seq=LM_SERVE_MAX_SEQ, prompt=prompt, max_new=max_new,
+                mla_absorb=model.cfg.mla_absorb,
+                absorbed_decode_calls=absorbed[0],
+                engine_steps=eng.steps, run_s=run_s,
+                generated_tokens=generated,
+                decode_tokens_per_s=generated / run_s,
+                swapped="latent c" if latent else "k, v", pages=pages,
+                page_width=int(stored[0].shape[1]),
+                page_table_rebuilds=eng.kv_store.table.rebuilds,
+                fetch_exact=True)
+
+
+def moe_model(device, seed: int, cfg):
+    """The model, random weights from ``seed`` drawn on ``device``, their
+    count, and the seconds drawing took."""
+    from repro_torch.models import Model
+    model = Model(cfg)
+    params, init_s = timed(lambda: model.init(seed, device=device), device)
+    return model, params, sum(t.numel() for t in _leaves(params)), init_s
+
+
+def lm_moe_deepseek(device, seed: int, cfg, seq: int, prompt: int,
+                    max_new: int) -> dict:
+    """deepseek-v2 (MLA and the MoE): the bf16 prefill (the main path, then
+    again with CUDA events around the MLA attention for its share); the
+    float32 prefill-against-decode check with the naive and the absorbed
+    MLA decode, and the two decodes against each other; ``ServeEngine`` on
+    the production config (absorbed decode)."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.registry import with_production
+    from repro_torch.models import Model
+    from repro_torch.models.steps import make_prefill_step
+    full = get_config(MOE_DEEPSEEK)
+    emit("reduced", lm_arch=cfg.name, n_layers=cfg.n_layers,
+         of=full.n_layers, why=f"{full.n_params() * 4 / 2**30:.0f} GiB of "
+         "float32 parameters cannot be held on one card (four would not "
+         "hold them either); the dense layer 0 and two MoE layers of 160 "
+         "experts keep one period of the layer pattern at full width",
+         prefill_seq=seq, prefill_of=SHAPES["prefill_32k"].seq_len,
+         prefill_why="the plain MLA attention (the reference's jnp "
+         "flash_attention; K5 takes no 192-wide key) holds [1, S, 128, 1024] "
+         "float32 scores a key chunk: 2.1 GB at 4,096 tokens, 17.2 GB at "
+         "32,768, and as much again for p")
+    model, params, n_params, init_s = moe_model(device, seed, cfg)
+    prefill = make_prefill_step(model)
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    tokens = torch.randint(0, cfg.vocab, (1, seq), generator=gen,
+                           device=device)
+    _, warm_s = timed(lambda: prefill(params, {"tokens": tokens[:, :256]}),
+                      device)
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+               init_s=init_s, warmup_s=warm_s,
+               **moe_prefill(device, cfg, prefill, params, tokens))
+    # the attention's share of a second prefill, device time on both sides
+    with timed_mla_attention(device) as att:
+        t0 = att.mark()
+        prefill(params, {"tokens": tokens})
+        t1 = att.mark()
+        whole = att.ms(t0, t1)
+        attn = sum(att.ms(a, b) for a, b in att.spans)
+    check(len(att.spans) == cfg.n_layers,
+          f"{len(att.spans)} MLA attention calls for {cfg.n_layers} layers")
+    out.update(attention_ms=attn, evented_prefill_ms=whole,
+               attention_share=attn / whole)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    few = tokens[:, :LM_CHECK_TOKENS]
+    out["check_naive"], dec_naive = lm_prefill_check(
+        device, cfg32, params, few, phase="lm_moe_check")
+    out["check_absorbed"], dec_abs = lm_prefill_check(
+        device, dataclasses.replace(cfg32, mla_absorb=True), params, few,
+        phase="lm_moe_check")
+    out["naive_vs_absorbed"] = logit_agreement(dec_naive, dec_abs)
+    check(out["naive_vs_absorbed"]["argmax_equal"]
+          and out["naive_vs_absorbed"]["max_rel_err"] <= 1e-3,
+          f"naive and absorbed decode disagree: {out['naive_vs_absorbed']}")
+    del dec_naive, dec_abs
+    out["serve"] = moe_serve(device, seed,
+                             Model(with_production(cfg, MOE_DEEPSEEK)),
+                             params, prompt, max_new)
+    return out
+
+
+def moe_layers_that_fit(device, cfg) -> int:
+    """The most layers of ``cfg`` whose float32 weights (experts padded),
+    beside ``MOE_PREFILL_WORKSPACE``, fit in the card's free memory."""
+    import torch
+    from repro_torch.layers.moe import padded_experts
+    if device.type != "cuda":
+        return cfg.n_layers
+    padded = dataclasses.replace(cfg, n_experts=padded_experts(
+        cfg.n_experts))
+    fixed = dataclasses.replace(padded, n_layers=0).n_params() * 4
+    per_layer = (padded.n_params() * 4 - fixed) / cfg.n_layers
+    free = torch.cuda.mem_get_info(device)[0] - MOE_PREFILL_WORKSPACE
+    return max(1, min(cfg.n_layers, int((free - fixed) // per_layer)))
+
+
+def lm_moe_qwen(device, seed: int, cfg, seq: int, prompt: int,
+                max_new: int) -> dict:
+    """qwen2-moe (GQA through K5 and the MoE): a recorded bf16 prefill
+    whose first and last K5 launches are replayed through the plain version
+    and timed beside it, its bound and SDPA; the main-path prefill (one K5
+    launch a layer, all on the Hopper kernel); the float32
+    prefill-against-decode check; ``ServeEngine``."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.registry import with_production
+    from repro_torch.layers.moe import padded_experts
+    from repro_torch.models import Model
+    from repro_torch.models.steps import make_prefill_step
+    n = moe_layers_that_fit(device, cfg)
+    if n < cfg.n_layers:
+        emit("reduced", lm_arch=cfg.name, n_layers=n, of=cfg.n_layers,
+             why="the float32 weights of every layer (experts padded from "
+             f"{cfg.n_experts} to {padded_experts(cfg.n_experts)}) and the "
+             "prefill's workspace exceed the card's free memory")
+        cfg = dataclasses.replace(cfg, n_layers=n)
+    emit("reduced", lm_arch=cfg.name, lm_prefill_batch=1,
+         of=SHAPES["prefill_32k"].global_batch, why="prefill_32k's global "
+         "batch of 32 cut to one sequence on one card")
+    model, params, n_params, init_s = moe_model(device, seed, cfg)
+    prefill = make_prefill_step(model)
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+    tokens = torch.randint(0, cfg.vocab, (1, seq), generator=gen,
+                           device=device)
+    _, warm_s = timed(lambda: prefill(params, {"tokens": tokens[:, :256]}),
+                      device)
+    last = cfg.n_layers - 1
+    with recorded_attention(keep={0, last}) as rec:
+        prefill(params, {"tokens": tokens})
+    check(len(rec.dtypes) == cfg.n_layers,
+          f"{len(rec.dtypes)} K5 calls for {cfg.n_layers} layers")
+    replays = [replay_k5_launch(call, "lm_moe_replay")
+               for call in rec.calls]
+    _, q, k, v, kw, _ = rec.calls[-1]
+    del rec
+    times = k5_times(q, k, v, kw, device)
+    del q, k, v
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+               init_s=init_s, warmup_s=warm_s,
+               **moe_prefill(device, cfg, prefill, params, tokens),
+               replayed_launches=[r["launch"] for r in replays],
+               **replay_summary(replays), **times)
+    if device.type == "cuda":
+        check(out["k5_launches"] == cfg.n_layers,
+              f"K5 launched {out['k5_launches']} times in a prefill of "
+              f"{cfg.n_layers} layers")
+        check(out["k5_kernels"] == ["flash_attention_sm90"],
+              f"the prefill's K5 launches took {out['k5_kernels']}")
+    out["kernel_share_of_prefill"] = (out["k5_launches"] * out["kernel_ms"]
+                                      / (out["ttft_s"] * 1e3))
+    out["check"], _ = lm_prefill_check(
+        device, dataclasses.replace(cfg, dtype="float32"), params,
+        tokens[:, :LM_CHECK_TOKENS], phase="lm_moe_check")
+    out["serve"] = moe_serve(device, seed,
+                             Model(with_production(cfg, MOE_QWEN)), params,
+                             prompt, max_new)
+    return out
+
+
+def phase_lm_moe(device, seed: int, deepseek_cfg=None, qwen_cfg=None,
+                 deepseek_seq: int = DEEPSEEK_PREFILL_SEQ,
+                 qwen_seq: int = LM_PREFILL_SEQ, prompt: int = 64,
+                 max_new: int = 32) -> dict:
+    """The MoE family at full width, one model after the other (the first
+    freed before the second is drawn): deepseek-v2 cut to
+    ``DEEPSEEK_LAYERS`` layers, qwen2-moe at its full depth if the card
+    holds it."""
+    import torch
+    from repro_torch.configs import get_config
+    deepseek_cfg = deepseek_cfg or dataclasses.replace(
+        get_config(MOE_DEEPSEEK), n_layers=DEEPSEEK_LAYERS)
+    qwen_cfg = qwen_cfg or get_config(MOE_QWEN)
+    ds = lm_moe_deepseek(device, seed, deepseek_cfg, deepseek_seq, prompt,
+                         max_new)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    qw = lm_moe_qwen(device, seed, qwen_cfg, qwen_seq, prompt, max_new)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"deepseek_v2": ds, "qwen2_moe": qw}
+    emit("lm_moe", **out)
+    return out
+
+
 # ----------------------------------------------------------------- main ----
 
 class PhaseClock:
@@ -3643,8 +4054,13 @@ def main(argv=None) -> int:
     lap("lm_prefill")
     phase_lm_serve(device, args.seed, model, params)
     del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("lm_serve")
+    lm_moe = phase_lm_moe(device, args.seed)
+    lap("lm_moe")
     emit("phase_seconds", **lap.seconds)
+    qwen = lm_moe["qwen2_moe"]
     csrc = "src/repro_torch/kernels/csrc/"
     k2, k3 = ("src/repro/kernels/plex_segment_lookup.py:302",
               "src/repro/kernels/plex_segment_lookup.py:327")
@@ -3744,11 +4160,17 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": csrc + prefill["kernel"] + ".cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
-        "launches": prefill["launches"],
-        "max_abs_err": max(attn["max_abs_err"], prefill["max_abs_err"]),
+        "launches": prefill["launches"] + qwen["k5_launches"],
+        "max_abs_err": max(attn["max_abs_err"], prefill["max_abs_err"],
+                           qwen["max_abs_err"]),
         "ms": prefill["kernel_ms"], "plain_ms": prefill["plain_ms"],
         "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
-        "library_ms": prefill["library_ms"], "matches_plain": True}]}),
+        "library_ms": prefill["library_ms"], "matches_plain": True,
+        # qwen2-moe's prefill (lm_moe): its launches, at its own shape
+        "qwen2_moe": {k: qwen[k] for k in (
+            "k5_launches", "k5_kernels", "shape", "kernel_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "max_abs_err",
+            "replayed_launches")}}]}),
         flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ numpy; lookups run on an NVIDIA GPU through the hand-written CUDA kernel in
 ``kernels/csrc/stacked_lookup.cu``, with a plain PyTorch version of the same
 pipeline for CPU tensors. The LM substrate's serving side (``configs``,
 ``layers``, ``models``, ``serving.engine``, ``launch.serve``) runs the
-dense-attention architectures, its prefill attention through the
-hand-written flash-attention kernel ``kernels/csrc/flash_attention.cu``.
+dense-attention architectures and the MoE family (MLA and the
+capacity-dropping MoE), its GQA prefill attention through the hand-written
+flash-attention kernels (``kernels/csrc/flash_attention_sm90.cu`` in
+bfloat16, ``kernels/csrc/flash_attention.cu`` in float32).
 Backend names resolve through ``kernels.backends``; ``persist`` writes and
 reads the reference's on-disk generations, and ``resilience`` holds the
 fault-injection points and circuit breakers of the service's fallback

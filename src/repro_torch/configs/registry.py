@@ -43,12 +43,16 @@ PRODUCTION_OVERRIDES: dict[str, dict] = {
 }
 
 
+def with_production(cfg: ArchConfig, arch: str) -> ArchConfig:
+    """``cfg`` (full, smoke or cut to depth) with ``arch``'s production
+    overrides."""
+    import dataclasses
+    return dataclasses.replace(cfg, **PRODUCTION_OVERRIDES.get(arch, {}))
+
+
 def get_config(arch: str, *, production: bool = False) -> ArchConfig:
     cfg = _mod(arch).CONFIG
-    if production and arch in PRODUCTION_OVERRIDES:
-        import dataclasses
-        cfg = dataclasses.replace(cfg, **PRODUCTION_OVERRIDES[arch])
-    return cfg
+    return with_production(cfg, arch) if production else cfg
 
 
 def get_smoke(arch: str) -> ArchConfig:

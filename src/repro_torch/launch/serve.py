@@ -4,6 +4,11 @@ says otherwise.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b \\
       --smoke --device cpu --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --smoke --device cpu --production
+
+``--production`` applies the arch's ``PRODUCTION_OVERRIDES`` (deepseek-v2:
+the weight-absorbed MLA decode) to the config, smoke or full.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import time
 import numpy as np
 
 from ..configs import get_config, get_smoke
+from ..configs.registry import with_production
 from ..device import resolve_device
 from ..models import Model
 from ..serving import ServeEngine
@@ -23,6 +29,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--production", action="store_true",
+                    help="apply the arch's production overrides")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
@@ -33,6 +41,8 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.production:
+        cfg = with_production(cfg, args.arch)
     model = Model(cfg)
     params = model.init(0, device=device)
     eng = ServeEngine(model, params, batch_size=args.batch,

@@ -7,8 +7,9 @@ from .lm import Model
 
 
 def make_prefill_step(model: Model):
-    """Forward returning last-position logits (the prefill_32k unit): every
-    layer's attention is one K5 launch."""
+    """Forward returning last-position logits (the prefill_32k unit): each
+    GQA layer's attention is one K5 launch; an MLA layer's attention is the
+    plain ``flash_attention`` (``layers/mla.py``)."""
 
     def prefill_step(params, batch):
         x, _ = model.forward(params, batch)

@@ -2,9 +2,9 @@
 (the port of ``repro.serving.engine``).
 
 Fixed decode slots, per-slot sequence state, greedy sampling, EOS/max-len
-retirement, and PLEX-paged swap-out of finished sequences' KV
-(``kv_cache.PagedKVStore``). Prompts go through the decode step token by
-token, as in the reference; batched prefill is ``models.steps.
+retirement, and PLEX-paged swap-out of finished sequences' KV, or MLA's
+latents (``kv_cache.PagedKVStore``). Prompts go through the decode step
+token by token, as in the reference; batched prefill is ``models.steps.
 make_prefill_step``.
 
 Slots at different positions step in groups, one ``serve_step`` per
@@ -144,9 +144,13 @@ class ServeEngine:
         self.slots[slot] = None
 
     def _slot_kv(self, slot: int, n_tokens: int) -> np.ndarray:
-        """This slot's per-layer KV of the first segment, [T, ...] float32,
-        for swap-out (the reference's layout)."""
+        """This slot's per-layer cache of the first segment, [T, ...]
+        float32, for swap-out (the reference's layout): K and V side by
+        side, or MLA's latent ``c`` alone."""
         blk = self.cache["seg0"]["blk0"]
+        if "c" in blk:
+            c = blk["c"][:, slot, :n_tokens].float().cpu().numpy()
+            return c.transpose(1, 0, 2).reshape(n_tokens, -1)
         k = blk["k"][:, slot, :n_tokens].float().cpu().numpy()
         v = blk["v"][:, slot, :n_tokens].float().cpu().numpy()
         return np.concatenate([k, v], axis=-1).transpose(1, 0, 2, 3).reshape(

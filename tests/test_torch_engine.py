@@ -8,7 +8,9 @@ same operations, exactly. The late-admission test shows ROADMAP queue 3, R6:
 the reference engine steps the whole batch for each position group and
 overwrites the history of slots in other groups; the port steps each group
 on its own slots, so every request answers as it does served alone. The
-launcher runs with ``--smoke --device cpu``.
+MoE configs' engines (deepseek-v2 swaps MLA's latent ``c``, qwen2-moe K and
+V) answer the same traffic with the reference's tokens and pages. The
+launcher runs with ``--smoke --device cpu`` for the dense and MoE archs.
 """
 import dataclasses
 import re
@@ -34,11 +36,11 @@ from repro_torch.serving.engine import Request
 from repro_torch.serving.kv_cache import page_key
 
 
-def _pair(dtype=None, seed=0):
-    """The reference's minitron smoke model and params, and the port's
-    model over the same params."""
-    cfg = r_get_smoke("minitron-4b")
-    tcfg = get_smoke("minitron-4b")
+def _pair(dtype=None, seed=0, arch="minitron-4b"):
+    """The reference's smoke model and params, and the port's model over
+    the same params."""
+    cfg = r_get_smoke(arch)
+    tcfg = get_smoke(arch)
     if dtype:
         cfg = dataclasses.replace(cfg, dtype=dtype)
         tcfg = dataclasses.replace(tcfg, dtype=dtype)
@@ -76,6 +78,32 @@ def test_engine_matches_reference_on_aligned_traffic():
     assert kv.shape == rkv.shape and kv.dtype == np.float32
     assert np.abs(kv - rkv).max() <= 5e-2 * np.abs(rkv).max()
     assert teng.kv_store.table.lookups > 0
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen2-moe-a2.7b"])
+def test_moe_engine_matches_reference_on_aligned_traffic(arch):
+    """The same traffic on the MoE configs, in their bfloat16: identical
+    tokens and page counts; the swapped pages (deepseek-v2: the latent
+    ``c`` of every layer, ``[T, n * kv_lora]``) of the reference's width,
+    within bfloat16's rounding of the tensor's scale."""
+    rm, rparams, tm, tparams = _pair(arch=arch)
+    reqs = [(i, np.arange(4) + i, 6) for i in range(4)]
+    reng = RServeEngine(rm, rparams, batch_size=2, max_seq=64)
+    teng = ServeEngine(tm, tparams, batch_size=2, max_seq=64, device="cpu")
+    want = _serve(reng, RRequest, reqs)
+    got = _serve(teng, Request, reqs)
+    assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+    for sid in want:
+        assert np.array_equal(got[sid].tokens, want[sid].tokens), sid
+        assert got[sid].swapped_pages == want[sid].swapped_pages
+        kv, rkv = teng.kv_store.fetch(sid, 9), reng.kv_store.fetch(sid, 9)
+        assert kv.shape == rkv.shape and kv.dtype == np.float32
+        assert np.abs(kv - rkv).max() <= 5e-2 * np.abs(rkv).max()
+    width = (tm.cfg.kv_lora if tm.cfg.attn_type == "mla"
+             else 2 * tm.cfg.n_kv_heads * tm.cfg.resolved_head_dim)
+    assert kv.shape == (9, width * tm.segments[0].repeats)
+    assert teng.steps == reng.steps
+    assert len(teng.kv_store.table) == len(reng.kv_store.table) >= 4
 
 
 def test_late_admission_keeps_other_slots_history():
@@ -171,6 +199,25 @@ def test_launcher_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert re.search(r"\[serve\] 3 requests, 12 tokens, .* tok/s\); page "
                      r"table: 3 pages, 0 PLEX rebuilds", out), out
+
+
+@pytest.mark.parametrize("production", [False, True])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen2-moe-a2.7b"])
+def test_moe_launcher_runs_on_cpu(capsys, monkeypatch, arch, production):
+    """The MoE archs through the launcher; ``--production`` applies the
+    overrides (deepseek-v2: the absorbed MLA decode, which must run)."""
+    from repro_torch.layers import mla
+    absorbed = []
+    orig = mla._decode_absorbed
+    monkeypatch.setattr(mla, "_decode_absorbed",
+                        lambda *a: absorbed.append(1) or orig(*a))
+    launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--requests", "3", "--max-new", "4"]
+                      + (["--production"] if production else []))
+    out = capsys.readouterr().out
+    assert re.search(r"\[serve\] 3 requests, 12 tokens, .* tok/s\); page "
+                     r"table: 3 pages, 0 PLEX rebuilds", out), out
+    assert bool(absorbed) == (production and arch == "deepseek-v2-236b")
 
 
 def test_engine_defaults_to_the_card(monkeypatch):
