@@ -88,7 +88,17 @@ card, then drives the port's three paths:
   width and depth, a 32,768-token prefill with one K5 launch a layer, all
   on the Hopper kernel (the first and last replayed through the plain
   version, K5 timed at that shape beside SDPA), the same float32 check and
-  the engine.
+  the engine;
+* the recurrent families (``lm_recurrent``): rwkv6 at full width and
+  depth, a 32,768-token bf16 prefill (the chunked WKV, no K5), the float32
+  check of prefill against decode at full depth and the ``ServeEngine``
+  whose second wave enters used slots; then recurrentgemma at full width
+  and depth, a 32,768-token prefill (the RG-LRU scans and the windowed
+  attention, whose share comes from CUDA events), a float32 ring-wrap
+  check at one pattern of 3 layers (prefill against 2,112 decode steps
+  through the 2,048-position ring) and the engine; every admitted slot's
+  recurrent rows must read zero and its ring rows empty before its first
+  step.
 
 Each phase prints one JSON line, and ``phase_seconds`` each phase's host
 wall time; the ``kernels`` line carries each kernel's
@@ -3598,7 +3608,7 @@ MOE_DEEPSEEK = "deepseek-v2-236b"
 MOE_QWEN = "qwen2-moe-a2.7b"
 DEEPSEEK_LAYERS = 3            # the dense layer 0 and two MoE layers
 DEEPSEEK_PREFILL_SEQ = 4096    # the plain MLA attention's scores, below
-MOE_SERVE_REQUESTS = 8
+ALIGNED_REQUESTS = 8
 # what the qwen2-moe prefill of 32,768 tokens needs beside its weights:
 # the MoE dispatch (about 3 GB), two recorded K5 launches and their
 # replays, SDPA's copies and the allocator's slack
@@ -3626,18 +3636,24 @@ class recorded_routing:
         M.route = self._orig
 
 
-class timed_mla_attention:
-    """Within the block, every MLA attention call
-    (``layers.mla.flash_attention``) is bracketed by CUDA events (host
-    clock on the CPU); ``ms()`` sums them after a sync."""
+class evented_calls:
+    """Within the block, every call of ``layers.<layer>.<name>`` (default
+    the plain ``flash_attention``: MLA's, or the windowed prefill of
+    ``layers.attention.apply_gqa``; or RWKV's ``_wkv_chunked``) is
+    bracketed by CUDA events (host clock on the CPU); ``ms()`` gives a
+    span's time after a sync."""
 
-    def __init__(self, device):
-        self.device = device
+    def __init__(self, device, layer: str, name: str = "flash_attention"):
+        self.device, self.layer, self.name = device, layer, name
+
+    def _module(self):
+        import importlib
+        return importlib.import_module(f"repro_torch.layers.{self.layer}")
 
     def __enter__(self):
         import torch
-        from repro_torch.layers import mla as M
-        self.spans, self._orig = [], M.flash_attention
+        M = self._module()
+        self.spans, self._orig = [], getattr(M, self.name)
         cuda = self.device.type == "cuda"
 
         def mark():
@@ -3653,12 +3669,11 @@ class timed_mla_attention:
             self.spans.append((t0, mark()))
             return out
         self.mark = mark
-        M.flash_attention = timed_call
+        setattr(M, self.name, timed_call)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.layers import mla as M
-        M.flash_attention = self._orig
+        setattr(self._module(), self.name, self._orig)
 
     def ms(self, a, b) -> float:
         if self.device.type != "cuda":
@@ -3683,11 +3698,30 @@ def routing_stats(cfg, routings) -> list:
     return rows
 
 
-def moe_prefill(device, cfg, prefill, params, tokens) -> dict:
-    """The main path of one MoE model: a bf16 prefill through
+def share_of_prefill(device, prefill, params, tokens, layer: str,
+                     calls: int, name: str = "flash_attention",
+                     key: str = "attention") -> dict:
+    """A prefill with CUDA events around every call of
+    ``layers.<layer>.<name>`` (``evented_calls``) and around the whole call:
+    those calls' device time (``<key>_ms``) and their share."""
+    with evented_calls(device, layer, name) as tc:
+        t0 = tc.mark()
+        prefill(params, {"tokens": tokens})
+        t1 = tc.mark()
+        whole = tc.ms(t0, t1)
+        part = sum(tc.ms(a, b) for a, b in tc.spans)
+    check(len(tc.spans) == calls,
+          f"{len(tc.spans)} calls of {layer}.{name}, {calls} expected")
+    return {f"{key}_ms": part, "evented_prefill_ms": whole,
+            f"{key}_share": part / whole}
+
+
+def prefill_main_path(device, cfg, prefill, params, tokens) -> dict:
+    """The main path of one model: a bf16 prefill through
     ``make_prefill_step``, K5's count set to 0 just before and read just
     after; the kernel each launch took (by q's dtype), time to first token,
-    peak memory and each MoE layer's routing."""
+    peak memory and each MoE layer's routing (none for a model without
+    MoE layers)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     if device.type == "cuda":
@@ -3712,13 +3746,51 @@ def moe_prefill(device, cfg, prefill, params, tokens) -> dict:
                 routing=routing_stats(cfg, rr.routings))
 
 
-def moe_serve(device, seed: int, model, params, prompt: int,
+def checked_admissions(eng) -> dict:
+    """Wraps ``eng._admit``: after every admission, each slot it filled
+    must hold a fresh sequence's state before its first step (its
+    recurrent rows zero, its ring rows ``EMPTY_POS``; R12, R13). Returns
+    the counts, filled as the engine runs."""
+    from repro_torch.models.lm import EMPTY_POS
+    from repro_torch.serving.engine import POSITIONAL, RING, cache_leaves
+    counts = {"admitted": 0, "into_used_slots": 0, "state_rows": 0,
+              "ring_rows": 0}
+    used: set = set()
+    admit = eng._admit
+
+    def checked():
+        before = [s is not None for s in eng.slots]
+        admit()
+        for i, s in enumerate(eng.slots):
+            if s is None or before[i]:
+                continue
+            counts["admitted"] += 1
+            counts["into_used_slots"] += i in used
+            used.add(i)
+            for path, t in cache_leaves(eng.cache):
+                if path[-1] in POSITIONAL + (RING,):
+                    continue
+                counts["state_rows"] += 1
+                check(not bool(t[:, i].any()),
+                      f"slot {i} admitted with state in {'/'.join(path)}")
+            for path, ring in eng.ring.items():
+                counts["ring_rows"] += 1
+                check(bool((ring[:, i] == EMPTY_POS).all()),
+                      f"slot {i} admitted with a written ring row "
+                      f"{'/'.join(path)}")
+    eng._admit = checked
+    return counts
+
+
+def serve_aligned(device, seed: int, model, params, prompt: int,
               max_new: int) -> dict:
     """``ServeEngine`` at batch 4, max_seq 512: 8 aligned requests of
-    ``prompt`` tokens and ``max_new`` new ones. Every request finishes with
-    its tokens, and the page table returns each swapped page exactly (MLA:
-    the latent ``c``); the absorbed MLA decode is counted where the config
-    asks for it."""
+    ``prompt`` tokens and ``max_new`` new ones, the second four in the
+    slots the first four used (``checked_admissions``). Every request
+    finishes with its tokens, and the page table returns each swapped page
+    exactly (MLA: the latent ``c``; a recurrent first block swaps
+    nothing); the absorbed MLA decode is counted where the config asks for
+    it."""
     from repro_torch.layers import mla as M
     from repro_torch.serving import ServeEngine
     from repro_torch.serving.engine import Request
@@ -3726,6 +3798,7 @@ def moe_serve(device, seed: int, model, params, prompt: int,
     vocab = model.cfg.vocab
     eng = ServeEngine(model, params, batch_size=LM_SERVE_BATCH,
                       max_seq=LM_SERVE_MAX_SEQ, device=device)
+    admissions = checked_admissions(eng)
     stored: dict = {}
     store = eng.kv_store.store
 
@@ -3733,7 +3806,7 @@ def moe_serve(device, seed: int, model, params, prompt: int,
         stored[seq_id] = kv.copy()
         return store(seq_id, kv)
     eng.kv_store.store = keep
-    for i in range(MOE_SERVE_REQUESTS):
+    for i in range(ALIGNED_REQUESTS):
         eng.submit(Request(seq_id=i, prompt=rng.integers(
             0, vocab, prompt).astype(np.int32), max_new=max_new))
     absorbed = [0]
@@ -3748,35 +3821,43 @@ def moe_serve(device, seed: int, model, params, prompt: int,
     finally:
         M._decode_absorbed = orig
     fin = {f.seq_id: f for f in fin}
-    check(sorted(fin) == list(range(MOE_SERVE_REQUESTS)),
+    check(sorted(fin) == list(range(ALIGNED_REQUESTS)),
           f"{model.cfg.name}: finished {sorted(fin)}")
     for sid, f in fin.items():
         check(f.tokens.size == max_new
               and bool(((f.tokens >= 0) & (f.tokens < vocab)).all()),
               f"{model.cfg.name}: request {sid}: {f.tokens.size} tokens")
-        check(np.array_equal(eng.kv_store.fetch(sid, stored[sid].shape[0]),
-                             stored[sid]),
-              f"{model.cfg.name}: request {sid}: fetched pages differ")
+        check(sid not in stored or np.array_equal(
+            eng.kv_store.fetch(sid, stored[sid].shape[0]), stored[sid]),
+            f"{model.cfg.name}: request {sid}: fetched pages differ")
     pages = sum(f.swapped_pages for f in fin.values())
     check(len(eng.kv_store.table) == pages, "page table misses pages")
-    latent = "c" in eng.cache["seg0"]["blk0"]
+    first = eng.cache["seg0"]["blk0"]
+    latent = "c" in first
+    swapped = "latent c" if latent else "k, v" if "k" in first else None
+    check((pages > 0) == (swapped is not None)
+          and len(stored) == (ALIGNED_REQUESTS if swapped else 0),
+          f"{model.cfg.name}: {pages} pages swapped of {swapped}")
     check((absorbed[0] > 0) == (latent and model.cfg.mla_absorb),
           f"{model.cfg.name}: {absorbed[0]} absorbed MLA decode calls")
-    generated = MOE_SERVE_REQUESTS * max_new
-    return dict(requests=MOE_SERVE_REQUESTS, batch=LM_SERVE_BATCH,
+    check(admissions["admitted"] == ALIGNED_REQUESTS
+          and admissions["into_used_slots"] == ALIGNED_REQUESTS
+          - LM_SERVE_BATCH, f"{model.cfg.name}: admissions {admissions}")
+    generated = ALIGNED_REQUESTS * max_new
+    return dict(requests=ALIGNED_REQUESTS, batch=LM_SERVE_BATCH,
                 max_seq=LM_SERVE_MAX_SEQ, prompt=prompt, max_new=max_new,
                 mla_absorb=model.cfg.mla_absorb,
                 absorbed_decode_calls=absorbed[0],
                 engine_steps=eng.steps, run_s=run_s,
                 generated_tokens=generated,
                 decode_tokens_per_s=generated / run_s,
-                swapped="latent c" if latent else "k, v", pages=pages,
-                page_width=int(stored[0].shape[1]),
+                swapped=swapped, pages=pages,
+                page_width=int(stored[0].shape[1]) if stored else 0,
                 page_table_rebuilds=eng.kv_store.table.rebuilds,
-                fetch_exact=True)
+                fetch_exact=True, admissions=admissions)
 
 
-def moe_model(device, seed: int, cfg):
+def drawn_model(device, seed: int, cfg):
     """The model, random weights from ``seed`` drawn on ``device``, their
     count, and the seconds drawing took."""
     from repro_torch.models import Model
@@ -3808,7 +3889,7 @@ def lm_moe_deepseek(device, seed: int, cfg, seq: int, prompt: int,
          "flash_attention; K5 takes no 192-wide key) holds [1, S, 128, 1024] "
          "float32 scores a key chunk: 2.1 GB at 4,096 tokens, 17.2 GB at "
          "32,768, and as much again for p")
-    model, params, n_params, init_s = moe_model(device, seed, cfg)
+    model, params, n_params, init_s = drawn_model(device, seed, cfg)
     prefill = make_prefill_step(model)
     gen = torch.Generator(device=device).manual_seed(seed + 6)
     tokens = torch.randint(0, cfg.vocab, (1, seq), generator=gen,
@@ -3817,18 +3898,10 @@ def lm_moe_deepseek(device, seed: int, cfg, seq: int, prompt: int,
                       device)
     out = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
                init_s=init_s, warmup_s=warm_s,
-               **moe_prefill(device, cfg, prefill, params, tokens))
+               **prefill_main_path(device, cfg, prefill, params, tokens))
     # the attention's share of a second prefill, device time on both sides
-    with timed_mla_attention(device) as att:
-        t0 = att.mark()
-        prefill(params, {"tokens": tokens})
-        t1 = att.mark()
-        whole = att.ms(t0, t1)
-        attn = sum(att.ms(a, b) for a, b in att.spans)
-    check(len(att.spans) == cfg.n_layers,
-          f"{len(att.spans)} MLA attention calls for {cfg.n_layers} layers")
-    out.update(attention_ms=attn, evented_prefill_ms=whole,
-               attention_share=attn / whole)
+    out.update(share_of_prefill(device, prefill, params, tokens, "mla",
+                                cfg.n_layers))
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     few = tokens[:, :LM_CHECK_TOKENS]
     out["check_naive"], dec_naive = lm_prefill_check(
@@ -3841,9 +3914,9 @@ def lm_moe_deepseek(device, seed: int, cfg, seq: int, prompt: int,
           and out["naive_vs_absorbed"]["max_rel_err"] <= 1e-3,
           f"naive and absorbed decode disagree: {out['naive_vs_absorbed']}")
     del dec_naive, dec_abs
-    out["serve"] = moe_serve(device, seed,
-                             Model(with_production(cfg, MOE_DEEPSEEK)),
-                             params, prompt, max_new)
+    out["serve"] = serve_aligned(device, seed,
+                                 Model(with_production(cfg, MOE_DEEPSEEK)),
+                                 params, prompt, max_new)
     return out
 
 
@@ -3885,7 +3958,7 @@ def lm_moe_qwen(device, seed: int, cfg, seq: int, prompt: int,
     emit("reduced", lm_arch=cfg.name, lm_prefill_batch=1,
          of=SHAPES["prefill_32k"].global_batch, why="prefill_32k's global "
          "batch of 32 cut to one sequence on one card")
-    model, params, n_params, init_s = moe_model(device, seed, cfg)
+    model, params, n_params, init_s = drawn_model(device, seed, cfg)
     prefill = make_prefill_step(model)
     gen = torch.Generator(device=device).manual_seed(seed + 8)
     tokens = torch.randint(0, cfg.vocab, (1, seq), generator=gen,
@@ -3905,7 +3978,7 @@ def lm_moe_qwen(device, seed: int, cfg, seq: int, prompt: int,
     del q, k, v
     out = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
                init_s=init_s, warmup_s=warm_s,
-               **moe_prefill(device, cfg, prefill, params, tokens),
+               **prefill_main_path(device, cfg, prefill, params, tokens),
                replayed_launches=[r["launch"] for r in replays],
                **replay_summary(replays), **times)
     if device.type == "cuda":
@@ -3919,9 +3992,9 @@ def lm_moe_qwen(device, seed: int, cfg, seq: int, prompt: int,
     out["check"], _ = lm_prefill_check(
         device, dataclasses.replace(cfg, dtype="float32"), params,
         tokens[:, :LM_CHECK_TOKENS], phase="lm_moe_check")
-    out["serve"] = moe_serve(device, seed,
-                             Model(with_production(cfg, MOE_QWEN)), params,
-                             prompt, max_new)
+    out["serve"] = serve_aligned(device, seed,
+                                 Model(with_production(cfg, MOE_QWEN)), params,
+                                 prompt, max_new)
     return out
 
 
@@ -3949,6 +4022,115 @@ def phase_lm_moe(device, seed: int, deepseek_cfg=None, qwen_cfg=None,
         torch.cuda.empty_cache()
     out = {"deepseek_v2": ds, "qwen2_moe": qw}
     emit("lm_moe", **out)
+    return out
+
+
+# ----------------------------------------------------- the recurrent ----
+
+RWKV_ARCH = "rwkv6-1.6b"
+GRIFFIN_ARCH = "recurrentgemma-9b"
+RING_CHECK_LAYERS = 3          # one (rglru, rglru, wattn) pattern
+RING_CHECK_TOKENS = 2112       # 64 past recurrentgemma's window of 2,048
+
+
+def recurrent_prefill(device, seed: int, cfg, seq: int) -> tuple:
+    """The model at ``cfg`` (random weights from ``seed`` drawn on the
+    device) and the main path of its bf16 prefill of ``seq`` tokens
+    (``prefill_main_path``; no K5 launch may run, since neither the
+    recurrences nor the windowed attention are K5's function). Returns the
+    record, the prefill step, the model, its weights and the tokens."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.models.steps import make_prefill_step
+    emit("reduced", lm_arch=cfg.name, lm_prefill_batch=1,
+         of=SHAPES["prefill_32k"].global_batch, why="prefill_32k's global "
+         "batch of 32 cut to one sequence on one card")
+    model, params, n_params, init_s = drawn_model(device, seed, cfg)
+    prefill = make_prefill_step(model)
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    tokens = torch.randint(0, cfg.vocab, (1, seq), generator=gen,
+                           device=device)
+    _, warm_s = timed(lambda: prefill(params, {"tokens": tokens[:, :256]}),
+                      device)
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+               init_s=init_s, warmup_s=warm_s,
+               **prefill_main_path(device, cfg, prefill, params, tokens))
+    check(out["k5_launches"] == 0 and out["k5_calls"] == 0,
+          f"{cfg.name}: {out['k5_calls']} K5 calls in the prefill")
+    return out, prefill, model, params, tokens
+
+
+def lm_recurrent_rwkv(device, seed: int, cfg, seq: int, prompt: int,
+                      max_new: int) -> dict:
+    """rwkv6: the bf16 prefill (the main path), again with CUDA events
+    around each layer's chunked WKV for its share; the float32
+    prefill-against-decode check at full depth; ``ServeEngine``."""
+    out, prefill, model, params, tokens = recurrent_prefill(device, seed,
+                                                            cfg, seq)
+    out.update(share_of_prefill(device, prefill, params, tokens, "rwkv",
+                                cfg.n_layers, "_wkv_chunked", "wkv"))
+    out["check"], _ = lm_prefill_check(
+        device, dataclasses.replace(cfg, dtype="float32"), params,
+        tokens[:, :LM_CHECK_TOKENS], phase="lm_recurrent_check")
+    out["serve"] = serve_aligned(device, seed, model, params, prompt, max_new)
+    return out
+
+
+def lm_recurrent_griffin(device, seed: int, cfg, seq: int, prompt: int,
+                         max_new: int, ring_tokens: int = RING_CHECK_TOKENS
+                         ) -> dict:
+    """recurrentgemma: the bf16 prefill (the main path), again with CUDA
+    events around each windowed attention for its share; the float32
+    ring-wrap check at one pattern of layers (the same weights' first
+    pattern: prefill against ``ring_tokens`` decode steps through the
+    ring); ``ServeEngine`` on the production config (``kv_replicate_to``,
+    which leaves the ring at its KV heads)."""
+    from repro_torch.configs.registry import with_production
+    from repro_torch.models import Model
+    out, prefill, model, params, tokens = recurrent_prefill(device, seed,
+                                                            cfg, seq)
+    wattn = sum(cfg.layer_kind(i)[0] == "wattn" for i in range(cfg.n_layers))
+    out.update(share_of_prefill(device, prefill, params, tokens,
+                                "attention", wattn))
+    emit("reduced", lm_arch=cfg.name, ring_check_layers=RING_CHECK_LAYERS,
+         of=cfg.n_layers, why="the float32 ring-wrap check decodes "
+         f"{ring_tokens} tokens one at a time; one (rglru, rglru, wattn) "
+         "pattern keeps it to seconds")
+    cut = dataclasses.replace(cfg, n_layers=RING_CHECK_LAYERS,
+                              dtype="float32")
+    # a model of one pattern reads layer 0 of each block of the weights
+    out["ring_check"], _ = lm_prefill_check(
+        device, cut, params, tokens[:, :ring_tokens],
+        phase="lm_recurrent_ring_check")
+    out["ring_check"]["window"] = cfg.window
+    out["serve"] = serve_aligned(device, seed,
+                                 Model(with_production(cfg, GRIFFIN_ARCH)),
+                                 params, prompt, max_new)
+    return out
+
+
+def phase_lm_recurrent(device, seed: int, rwkv_cfg=None, griffin_cfg=None,
+                       seq: int = LM_PREFILL_SEQ, prompt: int = 64,
+                       max_new: int = 32,
+                       ring_tokens: int = RING_CHECK_TOKENS) -> dict:
+    """The recurrent families at full width and depth, one model after the
+    other (the first freed before the second is drawn): rwkv6, then
+    recurrentgemma."""
+    import torch
+    from repro_torch.configs import get_config
+    rwkv_cfg = rwkv_cfg or get_config(RWKV_ARCH)
+    griffin_cfg = griffin_cfg or get_config(GRIFFIN_ARCH)
+    rw = lm_recurrent_rwkv(device, seed, rwkv_cfg, seq, prompt, max_new)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    gr = lm_recurrent_griffin(device, seed, griffin_cfg, seq, prompt,
+                              max_new, ring_tokens)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"rwkv6": rw, "recurrentgemma": gr}
+    emit("lm_recurrent", **out)
     return out
 
 
@@ -4059,6 +4241,8 @@ def main(argv=None) -> int:
     lap("lm_serve")
     lm_moe = phase_lm_moe(device, args.seed)
     lap("lm_moe")
+    phase_lm_recurrent(device, args.seed)
+    lap("lm_recurrent")
     emit("phase_seconds", **lap.seconds)
     qwen = lm_moe["qwen2_moe"]
     csrc = "src/repro_torch/kernels/csrc/"

@@ -107,8 +107,10 @@ def lm_params_from_arrays(cfg: ArchConfig, tree: Mapping[str, Any],
     """The port ``Model``'s parameters from the reference's params pytree
     as numpy arrays (``jax.tree.map(np.asarray, params)``): every leaf of a
     segment loses its stacked leading ``[n]`` into one dict per layer, the
-    rest is carried as it is, all on ``device`` (default: the CUDA card).
-    The port then computes the reference model's function."""
+    rest is carried as it is, nested leaves too (MLA's and the MoE's,
+    RWKV's ``mixer``/``mlp`` with ``mu`` ``[n, 5, d]`` -> ``[5, d]``, the
+    RG-LRU's), all on ``device`` (default: the CUDA card). The port then
+    computes the reference model's function."""
     check_ported(cfg)
     out = dict(tree)
     for si, seg in enumerate(build_segments(cfg)):

@@ -6,9 +6,16 @@ says otherwise.
       --smoke --device cpu --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
       --smoke --device cpu --production
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-9b --smoke --device cpu --production
 
 ``--production`` applies the arch's ``PRODUCTION_OVERRIDES`` (deepseek-v2:
-the weight-absorbed MLA decode) to the config, smoke or full.
+the weight-absorbed MLA decode; recurrentgemma: ``kv_replicate_to`` 16,
+which leaves its ``wattn`` ring buffer at its one KV head) to the config,
+smoke or full. The recurrent archs swap no pages out (their first block
+holds no K/V).
 """
 from __future__ import annotations
 

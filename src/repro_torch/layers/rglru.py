@@ -1,0 +1,103 @@
+"""RG-LRU recurrent block, Griffin / RecurrentGemma (the port of
+``repro.layers.rglru``).
+
+A diagonal gated linear recurrence, ``h_t = a_t * h_{t-1} + sqrt(1 - a_t^2)
+* (i_t * x_t)`` with ``a_t = exp(-c * softplus(L) * r_t)``, after a width-4
+causal depthwise conv. The reference scans time with
+``jax.lax.associative_scan``; torch has no stable counterpart, so prefill
+runs ``layers.scan.linear_scan`` (a doubling scan, 15 steps at 32,768
+tokens). Decode carries a float32 {conv tail, h} state.
+"""
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+import torch
+import torch.nn.functional as F
+
+from .scan import linear_scan
+
+if TYPE_CHECKING:
+    from ..models.init import ParamInit
+
+RGLRU_C = 8.0
+
+
+def init_rglru(col: "ParamInit", n: int, cfg) -> dict:
+    """One layer's weights (``src/repro/layers/rglru.py:18-40``); ``n`` is
+    its segment's layer count (the reference's stacked dimension, which
+    scales the init)."""
+    d, w = cfg.d_model, cfg.rnn_width
+    return {
+        "wx": col.param((d, w), "scaled", fan=n),
+        "wgate": col.param((d, w), "scaled", fan=n),
+        "conv_w": col.param((cfg.conv_width, w), "normal"),
+        "conv_b": col.param((w,), "zeros"),
+        "lam": col.param((w,), "ones"),
+        "wa": col.param((w, w), "scaled", fan=n),
+        "ba": col.param((w,), "zeros"),
+        "wi": col.param((w, w), "scaled", fan=n),
+        "bi": col.param((w,), "zeros"),
+        "wo": col.param((w, d), "scaled", fan=n),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: torch.Tensor | None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv; x [B,S,W], w [CW,W] -> (y, the float32 tail
+    of the last CW-1 inputs) (``src/repro/layers/rglru.py:43-52``). The
+    taps are summed in the reference's order, in x's dtype."""
+    cw, s = w.shape[0], x.shape[1]
+    if tail is None:
+        tail = torch.zeros((x.shape[0], cw - 1, x.shape[2]), dtype=x.dtype,
+                           device=x.device)
+    xp = torch.cat([tail.to(x.dtype), x], dim=1)
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, cw):
+        y = y + xp[:, i:i + s] * w[i]
+    return y + b, xp[:, -(cw - 1):].float()
+
+
+def _rglru_scan(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None
+                ) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + x_t over S; x (= b) and a [B,S,W] float32,
+    ``h0`` [B,W] folded into the first step
+    (``src/repro/layers/rglru.py:55-69``)."""
+    if h0 is not None:
+        x = x.clone()
+        a = a.clone()
+        x[:, 0] += a[:, 0] * h0
+        a[:, 0] = 0.0
+    return linear_scan(a, x, dim=1)
+
+
+def apply_rglru(p: dict, x: torch.Tensor, cfg, *, state=None
+                ) -> tuple[torch.Tensor, dict | None]:
+    """Griffin's recurrent block (``src/repro/layers/rglru.py:72-107``).
+    state (decode): {"conv": [B,CW-1,W], "h": [B,W]} float32, or None
+    (prefill); returns (y, the new state or None)."""
+    dtype = x.dtype
+    u = torch.matmul(x, p["wx"].to(dtype))
+    gate = F.gelu(torch.matmul(x, p["wgate"].to(dtype)), approximate="tanh")
+    tail = None if state is None else state["conv"]
+    u, new_tail = _causal_conv(u, p["conv_w"].to(dtype),
+                               p["conv_b"].to(dtype), tail)
+
+    uf = u.float()
+    r = torch.sigmoid(torch.matmul(uf, p["wa"].float()) + p["ba"].float())
+    i = torch.sigmoid(torch.matmul(uf, p["wi"].float()) + p["bi"].float())
+    log_a = -RGLRU_C * F.softplus(p["lam"].float()) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
+
+    if state is None:
+        h = _rglru_scan(b, a, None)
+        new_state = None
+    else:
+        h = a[:, 0] * state["h"] + b[:, 0]
+        new_state = {"conv": new_tail, "h": h}
+        h = h[:, None]
+
+    y = h.to(dtype) * gate
+    return torch.matmul(y, p["wo"].to(dtype)), new_state

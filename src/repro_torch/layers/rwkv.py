@@ -1,0 +1,175 @@
+"""RWKV6 "Finch": token shift and the data-dependent-decay WKV recurrence
+(the port of ``repro.layers.rwkv``).
+
+As in the reference, prefill runs the *chunked* form of the linear
+recurrence: chunks of ``CHUNK`` positions, per-channel log-decays clamped
+at ``LOGW_MIN`` a step so that every chunk-local ``exp(±cum)`` factor
+(up to e^64) stays inside float32's range, the strictly-lower mask applied
+as a multiplication. The reference scans the chunks one after the other
+(``src/repro/layers/rwkv.py:107``): at 32,768 tokens that is 2,048 chunk
+bodies a layer, which a Python loop would launch one by one. Here every
+chunk-local term is computed for all chunks at once (``[B, N, C, H, D]``),
+only the chunk-to-chunk state recurrence ``state_n = state_{n-1} * dec_n +
+sum_c k_end (x) v`` runs, as ``layers.scan.linear_scan`` (log depth), and
+each chunk's inter-chunk output is formed from the state before it. The
+same function; only the float32 summation order differs. Decode runs the
+exact one-step recurrence with a float32 state (``shift`` [B, d], ``wkv``
+[B, H, D, D]) cast to the activation dtype at use.
+
+Token-shift mixing is the reference's static per-channel lerp (its noted
+simplification of RWKV6's dynamic ddlerp).
+"""
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+import torch
+import torch.nn.functional as F
+
+from .norms import group_norm_heads
+from .scan import linear_scan
+
+if TYPE_CHECKING:
+    from ..models.init import ParamInit
+
+LOGW_MIN = -4.0
+CHUNK = 16
+LORA = 64
+
+
+def init_rwkv_time(col: "ParamInit", n: int, cfg) -> dict:
+    """One layer's time-mix weights (``src/repro/layers/rwkv.py:28-55``);
+    ``n`` is its segment's layer count (the reference's stacked dimension,
+    which scales the init)."""
+    d = cfg.d_model
+    hs = cfg.rwkv_head_size
+    h = d // hs
+    return {
+        "mu": col.param((5, d), "normal"),
+        "wr": col.param((d, d), "scaled", fan=n),
+        "wk": col.param((d, d), "scaled", fan=n),
+        "wv": col.param((d, d), "scaled", fan=n),
+        "wg": col.param((d, d), "scaled", fan=n),
+        "w0": col.param((d,), "normal"),
+        "wa": col.param((d, LORA), "scaled", fan=n),
+        "wb": col.param((LORA, d), "scaled", fan=n),
+        "u": col.param((h, hs), "normal"),
+        "gn_w": col.param((d,), "ones"),
+        "gn_b": col.param((d,), "zeros"),
+        "wo": col.param((d, d), "scaled", fan=n),
+    }
+
+
+def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
+    """x_{t-1} per position; ``prev`` is the last token of the previous
+    segment (decode state) or zeros (``src/repro/layers/rwkv.py:58-62``)."""
+    first = torch.zeros_like(x[:, :1]) if prev is None else prev[:, None]
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _wkv_chunked(r, k, v, logw, u):
+    """r/k/v/logw [B,S,H,D] float32, u [H,D] -> (o [B,S,H,D], the final
+    state [B,H,D,D]) (``src/repro/layers/rwkv.py:65-108``)."""
+    b, s, h, dd = r.shape
+    c = min(CHUNK, s)
+    n = s // c
+    assert s % c == 0, (s, c)
+    rc, kc, vc, lw = (t.reshape(b, n, c, h, dd) for t in (r, k, v, logw))
+    mask = torch.tril(torch.ones((c, c), dtype=torch.float32,
+                                 device=r.device), diagonal=-1)
+    cum = torch.cumsum(lw, dim=2)                  # inclusive
+    cum_prev = cum - lw                            # exclusive
+    r_st = rc * torch.exp(cum_prev)
+    k_in = kc * torch.exp(-cum)
+    scores = torch.einsum("bnchk,bnghk->bnhcg", r_st, k_in) * mask
+    o2 = torch.einsum("bnhcg,bnghv->bnchv", scores, vc)
+    diag = torch.sum(rc * u * kc, dim=-1)          # [B,N,C,H]
+    last = cum[:, :, -1]                           # [B,N,H,D]
+    k_end = kc * torch.exp(last[:, :, None] - cum)
+    kv = torch.einsum("bnchk,bnchv->bnhkv", k_end, vc)
+    # the state after each chunk, then the state each chunk starts from
+    states = linear_scan(torch.exp(last)[..., None], kv, dim=1)
+    before = torch.cat([torch.zeros_like(states[:, :1]), states[:, :-1]],
+                       dim=1)
+    o1 = torch.einsum("bnchk,bnhkv->bnchv", r_st, before)
+    o = o1 + o2 + diag[..., None] * vc
+    return o.reshape(b, s, h, dd), states[:, -1]
+
+
+def wkv_step(state, r, k, v, logw, u):
+    """Exact single-step recurrence (decode); r/k/v/logw [B,H,D]
+    (``src/repro/layers/rwkv.py:111-116``)."""
+    kv = torch.einsum("bhk,bhv->bhkv", k, v)
+    o = torch.einsum("bhk,bhkv->bhv", r, state + u[None, ..., None] * kv)
+    state = state * torch.exp(logw)[..., None] + kv
+    return state, o
+
+
+def apply_rwkv_time(p: dict, x: torch.Tensor, cfg, *, state=None
+                    ) -> tuple[torch.Tensor, dict | None]:
+    """Time mix (``src/repro/layers/rwkv.py:119-161``). state (decode):
+    {"shift": [B,d], "wkv": [B,H,D,D]} float32, or None (prefill); returns
+    (y, the new state or None)."""
+    dtype = x.dtype
+    b, s, d = x.shape
+    hs = cfg.rwkv_head_size
+    h = d // hs
+    prev = None if state is None else state["shift"].to(dtype)
+    xs = _shift(x, prev)
+    mu = p["mu"].to(dtype)                          # [5, d]
+    xr, xk, xv, xw, xg = (x + mu[i] * (xs - x) for i in range(5))
+
+    r = torch.matmul(xr, p["wr"].to(dtype))
+    k = torch.matmul(xk, p["wk"].to(dtype))
+    v = torch.matmul(xv, p["wv"].to(dtype))
+    g = F.silu(torch.matmul(xg, p["wg"].to(dtype)))
+    lora = torch.tanh(torch.matmul(xw.float(), p["wa"].float()))
+    logw = -torch.exp(p["w0"].float() + torch.matmul(lora, p["wb"].float()))
+    logw = torch.clamp_min(logw, LOGW_MIN)
+
+    rf, kf, vf = (t.float().reshape(b, s, h, hs) for t in (r, k, v))
+    lw = logw.reshape(b, s, h, hs)
+    u = p["u"].float()
+
+    if state is None:
+        o, _ = _wkv_chunked(rf, kf, vf, lw, u)
+        new_state = None
+    else:
+        st, o1 = wkv_step(state["wkv"].float(), rf[:, 0], kf[:, 0],
+                          vf[:, 0], lw[:, 0], u)
+        o = o1[:, None]
+        new_state = {"shift": x[:, -1].float(), "wkv": st}
+
+    o = group_norm_heads(o, p["gn_w"].reshape(h, hs),
+                         p["gn_b"].reshape(h, hs))
+    o = o.reshape(b, s, d).to(dtype) * g
+    return torch.matmul(o, p["wo"].to(dtype)), new_state
+
+
+def init_rwkv_channel(col: "ParamInit", n: int, cfg) -> dict:
+    """One layer's channel-mix weights (``src/repro/layers/rwkv.py:164-
+    176``)."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu": col.param((2, d), "normal"),
+        "wk": col.param((d, f), "scaled", fan=n),
+        "wv": col.param((f, d), "scaled", fan=n),
+        "wr": col.param((d, d), "scaled", fan=n),
+    }
+
+
+def apply_rwkv_channel(p: dict, x: torch.Tensor, *, state=None
+                       ) -> tuple[torch.Tensor, dict | None]:
+    """Channel mix (``src/repro/layers/rwkv.py:179-195``). state (decode):
+    {"shift": [B,d]} float32, or None."""
+    dtype = x.dtype
+    prev = None if state is None else state["shift"].to(dtype)
+    xs = _shift(x, prev)
+    mu = p["mu"].to(dtype)
+    xk = x + mu[0] * (xs - x)
+    xr = x + mu[1] * (xs - x)
+    k = torch.square(F.relu(torch.matmul(xk, p["wk"].to(dtype))))
+    vv = torch.matmul(k, p["wv"].to(dtype))
+    rr = torch.sigmoid(torch.matmul(xr, p["wr"].to(dtype)))
+    new_state = None if state is None else {"shift": x[:, -1].float()}
+    return rr * vv, new_state

@@ -6,14 +6,27 @@ stacks each segment's weights and scans over them; here every layer keeps
 its own weights (``params["seg0"]["blk0"][layer]["mixer"]["wq"]``) and a
 Python loop walks the layers. Weights are cast to ``cfg.dtype`` at each use,
 as the reference does. The decode cache keeps the reference's stacked
-layout, one entry a segment position: ``cache["seg0"]["blk0"]["k"]`` of
-``[n, B, S, KVH, D]`` for GQA, ``"c"`` ``[n, B, S, kv_lora]`` and
-``"k_rope"`` ``[n, B, S, rope]`` for MLA; ``serve_step`` writes it in place.
+layout, one entry a segment position, ``[n, B, ...]``:
 
-Ported kinds: mixers ``gqa`` and ``mla``, MLPs ``mlp`` and ``moe`` (whose
-aux losses ``forward`` sums), ``parallel_block``, ``tie_embeddings``,
-M-RoPE and ``kv_replicate_to``. The others raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+* ``gqa``: ``"k"``, ``"v"`` ``[n, B, S, KVH, D]``;
+* ``mla``: ``"c"`` ``[n, B, S, kv_lora]``, ``"k_rope"`` ``[n, B, S, rope]``;
+* ``wattn``: a ring buffer of the last ``window`` positions, ``"k"``,
+  ``"v"`` ``[n, B, window, n_kv_heads, D]`` and the absolute position of
+  each ring slot, ``"kpos"`` ``[n, window]`` (``-10**9`` where unwritten),
+  which every batch row shares, as in the reference;
+* ``rwkv``: ``{"time": {"shift", "wkv"}, "channel_shift"}`` float32;
+* ``rglru``: ``"conv"`` ``[n, B, CW-1, W]`` and ``"h"`` ``[n, B, W]``
+  float32.
+
+``serve_step`` writes it in place: K/V rows and ring slots are written at
+the step's position, recurrent state is replaced by ``copy_`` into the
+cache's storage, so the cache it returns is the one it was given.
+
+Ported kinds: mixers ``gqa``, ``mla``, ``wattn``, ``rwkv`` and ``rglru``,
+MLPs ``mlp``, ``moe`` (whose aux losses ``forward`` sums) and ``rwkv_cm``,
+``parallel_block``, ``tie_embeddings``, M-RoPE and ``kv_replicate_to``. The
+others raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -24,20 +37,24 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..layers.attention import apply_gqa, init_gqa
+from ..layers.attention import apply_gqa, flash_attention, init_gqa
 from ..layers.mla import apply_mla, init_mla
 from ..layers.mlp import apply_mlp, init_mlp
 from ..layers.moe import apply_moe, init_moe
 from ..layers.norms import rms_norm
+from ..layers.rglru import apply_rglru, init_rglru
+from ..layers.rope import apply_rope, rope_cos_sin
+from ..layers.rwkv import (apply_rwkv_channel, apply_rwkv_time,
+                           init_rwkv_channel, init_rwkv_time)
 from .init import ParamInit, torch_dtype
+
+MIXERS = ("gqa", "mla", "wattn", "rwkv", "rglru")
+MLPS = ("mlp", "moe", "rwkv_cm")
+EMPTY_POS = -10**9          # a ring slot no position has been written to
 
 # kinds of the reference this port does not run yet, with where they are
 # ported (ROADMAP queue 1, item 12)
 UNPORTED = {
-    "rwkv": "layers/rwkv.py (ROADMAP queue 1, item 12c)",
-    "rwkv_cm": "layers/rwkv.py (ROADMAP queue 1, item 12c)",
-    "rglru": "layers/rglru.py (ROADMAP queue 1, item 12d)",
-    "wattn": "the ring-buffer window cache (ROADMAP queue 1, item 12e)",
     "frames": "the frames frontend (ROADMAP queue 1, item 12f)",
     "patch_embeds": "the patch-embedding frontend (ROADMAP queue 1, "
                     "item 12f)",
@@ -82,11 +99,8 @@ def check_ported(cfg: ArchConfig) -> None:
         raise _unported(cfg.frontend)
     for seg in build_segments(cfg):
         for mixer, mlp in seg.pattern:
-            for kind in (mixer, mlp):
-                if kind in UNPORTED:
-                    raise _unported(kind)
-                if kind not in ("gqa", "mla", "mlp", "moe"):
-                    raise ValueError(kind)
+            if mixer not in MIXERS or mlp not in MLPS:
+                raise ValueError((mixer, mlp))
 
 
 # ---------------------------------------------------------------- init ----
@@ -98,13 +112,21 @@ def _init_block(col: ParamInit, kind: tuple[str, str], n: int,
     p: dict[str, Any] = {"ln1": col.param((d,), "ones")}
     if mixer == "mla":
         p["mixer"] = init_mla(col, n, cfg)
+    elif mixer == "rwkv":
+        p["mixer"] = init_rwkv_time(col, n, cfg)
+    elif mixer == "rglru":
+        p["mixer"] = init_rglru(col, n, cfg)
     else:
         p["mixer"] = init_gqa(col, n, d, cfg.n_heads, cfg.n_kv_heads,
                               cfg.resolved_head_dim)
     if not cfg.parallel_block:
         p["ln2"] = col.param((d,), "ones")
-    p["mlp"] = (init_moe(col, n, cfg) if mlpk == "moe"
-                else init_mlp(col, n, d, cfg.d_ff))
+    if mlpk == "moe":
+        p["mlp"] = init_moe(col, n, cfg)
+    elif mlpk == "rwkv_cm":
+        p["mlp"] = init_rwkv_channel(col, n, cfg)
+    else:
+        p["mlp"] = init_mlp(col, n, d, cfg.d_ff)
     return p
 
 
@@ -137,26 +159,87 @@ def _pos_ids(cfg: ArchConfig, b: int, s: int, offset: int,
     return pos
 
 
+def _write_state(cache: dict, state: dict) -> None:
+    """Copy a layer's new recurrent state into its cache views (the
+    cache's storage), entry by entry."""
+    for name, t in state.items():
+        if isinstance(t, dict):
+            _write_state(cache[name], t)
+        else:
+            cache[name].copy_(t)
+
+
+def _apply_ring_block(p, x, cfg, *, pos_ids, cache, write_pos):
+    """``wattn`` decode through the ring buffer
+    (``src/repro/models/lm.py:137-164``): this step's K/V go to ring slot
+    ``write_pos % window``, which takes ``write_pos`` as its position, and
+    the query attends to the ring through its explicit key positions. No
+    M-RoPE and no KV replication on this branch, as in the reference."""
+    dtype = x.dtype
+    window = cfg.window
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dtype))
+    cos, sin = rope_cos_sin(pos_ids, q.shape[-1], cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    slot = write_pos % window
+    ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
+    ck[:, slot:slot + k.shape[1]] = k.to(ck.dtype)
+    cv[:, slot:slot + v.shape[1]] = v.to(cv.dtype)
+    kpos[slot] = write_pos
+    out = flash_attention(q, ck.to(dtype), cv.to(dtype), causal=True,
+                          q_offset=write_pos, window=window,
+                          k_positions=kpos, chunk=min(1024, window))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+
+
 def _apply_block(p, x, cfg, kind, *, pos_ids, cache, write_pos):
-    """One layer -> (x, aux); a decode cache is written in place."""
+    """One layer -> (x, aux); a decode cache is written in place
+    (``src/repro/models/lm.py:167-204``)."""
     mixer, mlpk = kind
     aux = None
     h = rms_norm(x, p["ln1"])
     if mixer == "mla":
         y, _ = apply_mla(p["mixer"], h, cfg, pos_ids=pos_ids, cache=cache,
                          write_pos=write_pos)
+    elif mixer == "rwkv":
+        y, st = apply_rwkv_time(p["mixer"], h, cfg, state=(
+            None if cache is None else cache["time"]))
+        if cache is not None:
+            _write_state(cache["time"], st)
+    elif mixer == "rglru":
+        y, st = apply_rglru(p["mixer"], h, cfg, state=cache)
+        if cache is not None:
+            _write_state(cache, st)
+    elif mixer == "wattn" and cache is not None:
+        y = _apply_ring_block(p["mixer"], h, cfg, pos_ids=pos_ids,
+                              cache=cache, write_pos=write_pos)
     else:
         y, _ = apply_gqa(p["mixer"], h, cfg, pos_ids=pos_ids, cache=cache,
-                         write_pos=write_pos, causal=cfg.causal)
+                         write_pos=write_pos, causal=cfg.causal,
+                         window=cfg.window if mixer == "wattn" else 0)
     if cfg.parallel_block:
         return x + y + apply_mlp(p["mlp"], h, cfg.act), aux
     x = x + y
     h2 = rms_norm(x, p["ln2"])
     if mlpk == "moe":
         out, aux = apply_moe(p["mlp"], h2, cfg)
+    elif mlpk == "rwkv_cm":
+        out, st = apply_rwkv_channel(p["mlp"], h2, state=(
+            None if cache is None else {"shift": cache["channel_shift"]}))
+        if cache is not None:
+            cache["channel_shift"].copy_(st["shift"])
     else:
         out = apply_mlp(p["mlp"], h2, cfg.act)
     return x + out, aux
+
+
+def _layer_view(entry: dict, r: int) -> dict:
+    """Layer ``r``'s views of a stacked cache entry, nested entries
+    included."""
+    return {name: (_layer_view(t, r) if isinstance(t, dict) else t[r])
+            for name, t in entry.items()}
 
 
 class Model:
@@ -178,10 +261,8 @@ class Model:
         for si, seg in enumerate(self.segments):
             for r in range(seg.repeats):
                 for bi, kind in enumerate(seg.pattern):
-                    cb = None
-                    if cache is not None:
-                        cb = {name: t[r] for name, t in
-                              cache[f"seg{si}"][f"blk{bi}"].items()}
+                    cb = (None if cache is None else
+                          _layer_view(cache[f"seg{si}"][f"blk{bi}"], r))
                     x, aux = _apply_block(
                         params[f"seg{si}"][f"blk{bi}"][r], x, self.cfg,
                         kind, pos_ids=pos_ids, cache=cb, write_pos=write_pos)
@@ -226,7 +307,8 @@ class Model:
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                device=None) -> dict:
     """Decode cache (stacked leading dim = segment repeats) on ``device``
-    (default: the CUDA card)."""
+    (default: the CUDA card), the reference's entries
+    (``src/repro/models/lm.py:315-362``)."""
     check_ported(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
@@ -236,18 +318,38 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
            and cfg.kv_replicate_to % cfg.n_kv_heads == 0
            else cfg.n_kv_heads)
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
 
-    cache: dict[str, Any] = {}
-    for si, seg in enumerate(build_segments(cfg)):
-        n = seg.repeats
-        cache[f"seg{si}"] = {
-            f"blk{bi}": ({"c": zeros(n, batch, max_seq, cfg.kv_lora),
-                          "k_rope": zeros(n, batch, max_seq,
-                                          cfg.rope_head_dim)}
-                         if mixer == "mla" else
-                         {"k": zeros(n, batch, max_seq, kvh, hd),
-                          "v": zeros(n, batch, max_seq, kvh, hd)})
-            for bi, (mixer, _) in enumerate(seg.pattern)}
-    return cache
+    def entry(n: int, mixer: str, mlpk: str) -> dict:
+        if mixer == "mla":
+            e = {"c": zeros(n, batch, max_seq, cfg.kv_lora),
+                 "k_rope": zeros(n, batch, max_seq, cfg.rope_head_dim)}
+        elif mixer == "wattn":
+            # the window's own KV heads: kv_replicate_to widens only gqa
+            w = cfg.window
+            e = {"k": zeros(n, batch, w, cfg.n_kv_heads, hd),
+                 "v": zeros(n, batch, w, cfg.n_kv_heads, hd),
+                 "kpos": torch.full((n, w), EMPTY_POS, dtype=torch.int32,
+                                    device=device)}
+        elif mixer == "rwkv":
+            hs = cfg.rwkv_head_size
+            e = {"time": {
+                "shift": zeros(n, batch, cfg.d_model, dt=torch.float32),
+                "wkv": zeros(n, batch, cfg.d_model // hs, hs, hs,
+                             dt=torch.float32)}}
+        elif mixer == "rglru":
+            e = {"conv": zeros(n, batch, cfg.conv_width - 1, cfg.rnn_width,
+                               dt=torch.float32),
+                 "h": zeros(n, batch, cfg.rnn_width, dt=torch.float32)}
+        else:
+            e = {"k": zeros(n, batch, max_seq, kvh, hd),
+                 "v": zeros(n, batch, max_seq, kvh, hd)}
+        if mlpk == "rwkv_cm":
+            e["channel_shift"] = zeros(n, batch, cfg.d_model,
+                                       dt=torch.float32)
+        return e
+
+    return {f"seg{si}": {f"blk{bi}": entry(seg.repeats, mixer, mlpk)
+                         for bi, (mixer, mlpk) in enumerate(seg.pattern)}
+            for si, seg in enumerate(build_segments(cfg))}

@@ -8,8 +8,10 @@ from .lm import Model
 
 def make_prefill_step(model: Model):
     """Forward returning last-position logits (the prefill_32k unit): each
-    GQA layer's attention is one K5 launch; an MLA layer's attention is the
-    plain ``flash_attention`` (``layers/mla.py``)."""
+    GQA layer's attention is one K5 launch; an MLA layer's attention, and a
+    ``wattn`` layer's windowed one, is the plain ``flash_attention``
+    (``layers/mla.py``, ``layers/attention.py``); RWKV and RG-LRU layers
+    run their chunked and scanned recurrences."""
 
     def prefill_step(params, batch):
         x, _ = model.forward(params, batch)

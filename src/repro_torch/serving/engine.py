@@ -14,6 +14,28 @@ overwrites the history of slots in other groups (ROADMAP queue 3, R6). Here
 a group steps on the sub-batch of its own slots: their cache rows are
 gathered, stepped and scattered back, and a slot outside the group is never
 written. On aligned traffic this gives the reference's tokens.
+
+Recurrent caches (RWKV's time and channel state, RG-LRU's conv tail and
+``h``) and the ``wattn`` ring buffer take two more repairs:
+
+* The reference never resets a slot's state when it admits a request
+  (``src/repro/serving/engine.py:64-69``), so a request in a used slot
+  starts from its predecessor's recurrent state (ROADMAP queue 3, R12).
+  ``_admit`` zeroes the admitted slot's recurrent rows. K/V rows need no
+  reset: positions not yet written are masked.
+* The ring's key positions ``kpos`` are one ``[n, window]`` plane that
+  every batch row shares (``src/repro/models/lm.py:343-345``); once a slot
+  has wrapped the ring, slots at other positions relabel its keys (R13).
+  The engine keeps one ring-position row per slot, ``ring[path]`` of
+  ``[n, B, window]``, beside the model's cache, whose layout stays the
+  reference's. Slots of one position group share ``pos`` and, since each
+  was reset on admission, the same ring history: the group passes one row
+  to ``serve_step`` and the stepped row is copied back to each of its
+  slots. Admission resets a slot's row to ``EMPTY_POS``.
+
+A first block with neither K/V nor latents (a recurrent one) swaps nothing
+out: ``_slot_kv`` returns ``None`` and the request reports 0 pages, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -23,7 +45,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.lm import Model, init_cache
+from ..models.lm import EMPTY_POS, Model, init_cache
 from .kv_cache import PagedKVStore
 
 
@@ -42,10 +64,32 @@ class Finished:
     swapped_pages: int
 
 
-def _map_cache(cache: dict, fn) -> dict:
-    return {seg: {blk: {name: fn(t) for name, t in entry.items()}
-                  for blk, entry in blks.items()}
-            for seg, blks in cache.items()}
+# cache leaves indexed by position, whose stale rows masking hides; every
+# other leaf with a batch dim is recurrent state
+POSITIONAL = ("k", "v", "c", "k_rope")
+RING = "kpos"
+
+
+def cache_leaves(tree: dict, path: tuple = ()):
+    """(path, tensor) of every leaf of a nested cache, in order."""
+    for name, t in tree.items():
+        if isinstance(t, dict):
+            yield from cache_leaves(t, path + (name,))
+        else:
+            yield path + (name,), t
+
+
+def _map_cache(tree: dict, fn, path: tuple = ()) -> dict:
+    """The cache's nesting with ``fn(path, tensor)`` at every leaf."""
+    return {name: (_map_cache(t, fn, path + (name,)) if isinstance(t, dict)
+                   else fn(path + (name,), t))
+            for name, t in tree.items()}
+
+
+def _leaf(tree: dict, path: tuple) -> torch.Tensor:
+    for name in path:
+        tree = tree[name]
+    return tree
 
 
 class ServeEngine:
@@ -59,6 +103,10 @@ class ServeEngine:
         self.max_seq = max_seq
         self.cache = init_cache(model.cfg, batch_size, max_seq,
                                 device=self.device)
+        # one ring-position row a slot for every wattn entry, [n, B, window]
+        self.ring = {path: t[:, None].repeat(1, batch_size, 1)
+                     for path, t in cache_leaves(self.cache)
+                     if path[-1] == RING}
         self.kv_store = PagedKVStore(page_tokens=page_tokens,
                                      n_pages=pool_pages)
         self.slots: list[dict | None] = [None] * batch_size
@@ -81,7 +129,17 @@ class ServeEngine:
         for i in range(self.b):
             if self.slots[i] is None and self.queue:
                 req = self.queue.pop(0)
+                self._reset_slot(i)
                 self.slots[i] = {"req": req, "pos": 0, "out": []}
+
+    def _reset_slot(self, slot: int) -> None:
+        """A fresh sequence's state in ``slot``: its recurrent rows zero, its
+        ring row ``EMPTY_POS`` (R12, R13)."""
+        for path, t in cache_leaves(self.cache):
+            if path[-1] not in POSITIONAL + (RING,):
+                t[:, slot].zero_()
+        for ring in self.ring.values():
+            ring[:, slot] = EMPTY_POS
 
     def _step_group(self, toks: np.ndarray, idxs: list[int], pos: int
                     ) -> np.ndarray:
@@ -89,14 +147,20 @@ class ServeEngine:
         only, gathered and scattered back; float32 logits [len(idxs), V] on
         the host."""
         rows = torch.as_tensor(idxs, dtype=torch.long, device=self.device)
-        sub = _map_cache(self.cache, lambda t: t.index_select(1, rows))
+
+        def gather(path, t):
+            if path[-1] == RING:        # the group's shared ring row
+                return self.ring[path][:, idxs[0]].clone()
+            return t.index_select(1, rows)
+        sub = _map_cache(self.cache, gather)
         logits, sub = self.model.serve_step(
             self.params, sub, torch.from_numpy(toks[idxs]).to(self.device),
             pos)
-        for seg, blks in sub.items():
-            for blk, entry in blks.items():
-                for name, t in entry.items():
-                    self.cache[seg][blk][name].index_copy_(1, rows, t)
+        for path, t in cache_leaves(sub):
+            if path[-1] == RING:
+                self.ring[path][:, rows] = t[:, None]
+            else:
+                _leaf(self.cache, path).index_copy_(1, rows, t)
         return logits.float().cpu().numpy()
 
     def step(self) -> None:
@@ -137,17 +201,21 @@ class ServeEngine:
         s = self.slots[slot]
         req = s["req"]
         # swap this sequence's KV out through the PLEX-paged store
-        pages = self.kv_store.store(req.seq_id, self._slot_kv(slot, s["pos"]))
+        kv = self._slot_kv(slot, s["pos"])
+        pages = 0 if kv is None else self.kv_store.store(req.seq_id, kv)
         self.finished.append(Finished(seq_id=req.seq_id,
                                       tokens=np.asarray(s["out"], np.int32),
                                       swapped_pages=pages))
         self.slots[slot] = None
 
-    def _slot_kv(self, slot: int, n_tokens: int) -> np.ndarray:
+    def _slot_kv(self, slot: int, n_tokens: int) -> np.ndarray | None:
         """This slot's per-layer cache of the first segment, [T, ...]
         float32, for swap-out (the reference's layout): K and V side by
-        side, or MLA's latent ``c`` alone."""
+        side, MLA's latent ``c`` alone, or ``None`` for a recurrent first
+        block."""
         blk = self.cache["seg0"]["blk0"]
+        if "k" not in blk and "c" not in blk:
+            return None
         if "c" in blk:
             c = blk["c"][:, slot, :n_tokens].float().cpu().numpy()
             return c.transpose(1, 0, 2).reshape(n_tokens, -1)

@@ -10,9 +10,18 @@ overwrites the history of slots in other groups; the port steps each group
 on its own slots, so every request answers as it does served alone. The
 MoE configs' engines (deepseek-v2 swaps MLA's latent ``c``, qwen2-moe K and
 V) answer the same traffic with the reference's tokens and pages. The
-launcher runs with ``--smoke --device cpu`` for the dense and MoE archs.
+recurrent configs (rwkv6; recurrentgemma, whose ``wattn`` ring has a
+window of 16) answer one aligned wave, in float32, with the reference's
+tokens and swap nothing out, as the reference. Under late admission, slot
+reuse and ring wrap the port answers every request as a fresh batch-1
+engine does; the reference carries a retired request's recurrent state
+into the next one in its slot (ROADMAP queue 3, R12), shown on rwkv6. The
+launcher runs with ``--smoke --device cpu`` for the dense, MoE and
+recurrent archs.
 """
 import dataclasses
+import importlib.util
+import pathlib
 import re
 
 import jax
@@ -32,7 +41,7 @@ from repro_torch.convert import lm_params_from_arrays
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import Model
 from repro_torch.serving import PagedKVStore, PageTable, ServeEngine
-from repro_torch.serving.engine import Request
+from repro_torch.serving.engine import POSITIONAL, Request, cache_leaves
 from repro_torch.serving.kv_cache import page_key
 
 
@@ -133,6 +142,134 @@ def test_late_admission_keeps_other_slots_history():
     assert np.array_equal(ref_alone[1].tokens, together[1].tokens)
 
 
+RECURRENT = ["rwkv6-1.6b", "recurrentgemma-9b"]
+
+
+def _port_engine(tm, tparams, batch_size):
+    return ServeEngine(tm, tparams, batch_size=batch_size, max_seq=64,
+                       device="cpu")
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_engine_matches_reference_on_aligned_traffic(arch):
+    """One wave of four aligned requests in four slots, float32: the
+    reference's tokens and steps. No slot is reused, so R12 cannot show,
+    and aligned slots share every ring position, so R13 cannot either."""
+    rm, rparams, tm, tparams = _pair("float32", arch=arch)
+    rng = np.random.default_rng(1)
+    reqs = [(i, rng.integers(0, 512, 6).astype(np.int32), 12)
+            for i in range(4)]
+    reng = RServeEngine(rm, rparams, batch_size=4, max_seq=64)
+    teng = _port_engine(tm, tparams, 4)
+    want = _serve(reng, RRequest, reqs)
+    got = _serve(teng, Request, reqs)
+    assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+    for sid in want:
+        assert np.array_equal(got[sid].tokens, want[sid].tokens), sid
+    assert teng.steps == reng.steps
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_swap_out_stores_nothing(arch):
+    """A recurrent first block has no K/V or latents to page out: every
+    request reports 0 pages and the page table stays empty, as the
+    reference's."""
+    rm, rparams, tm, tparams = _pair(arch=arch)
+    reqs = [(i, np.arange(4) + i, 3) for i in range(3)]
+    teng = _port_engine(tm, tparams, 2)
+    got = _serve(teng, Request, reqs)
+    want = _serve(RServeEngine(rm, rparams, batch_size=2, max_seq=64),
+                  RRequest, reqs)
+    assert [f.swapped_pages for f in got.values()] == [0, 0, 0]
+    assert [f.swapped_pages for f in want.values()] == [0, 0, 0]
+    assert teng._slot_kv(0, 4) is None and len(teng.kv_store.table) == 0
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_late_admission_reuse_and_wrap(arch):
+    """float32, batch 2, five requests of other lengths: slots retire at
+    different steps, later requests enter used slots beside sequences in
+    flight, position groups split, and four sequences pass the smoke
+    window of 16. Every request answers as in a fresh batch-1 port engine;
+    before its first step every admitted slot's recurrent rows are zero
+    and its ring row empty (R12, R13)."""
+    _, _, tm, tparams = _pair("float32", arch=arch)
+    rng = np.random.default_rng(2)
+    reqs = [(i, rng.integers(0, 512, n).astype(np.int32), m)
+            for i, (n, m) in enumerate([(3, 2), (7, 20), (4, 18), (9, 12),
+                                        (2, 25)])]
+    eng = _port_engine(tm, tparams, 2)
+    admitted, reused = [], []
+    admit = eng._admit
+
+    def checked_admit():
+        before = [s is not None for s in eng.slots]
+        admit()
+        for i, s in enumerate(eng.slots):
+            if s is None or before[i]:
+                continue
+            admitted.append(i)
+            reused.append(eng.steps > 0)
+            for path, t in cache_leaves(eng.cache):
+                if path[-1] not in POSITIONAL + ("kpos",):
+                    assert not t[:, i].any(), (path, i)
+            for ring in eng.ring.values():
+                assert bool((ring[:, i] == -10**9).all())
+    eng._admit = checked_admit
+    together = _serve(eng, Request, reqs)
+    assert len(admitted) == 5 and sum(reused) == 3
+    window = get_smoke("recurrentgemma-9b").window
+    assert sum(p.size + m > window for _, p, m in reqs) == 4
+    for req in reqs:
+        alone = _serve(_port_engine(tm, tparams, 1), Request, [req])
+        assert np.array_equal(together[req[0]].tokens,
+                              alone[req[0]].tokens), req[0]
+
+
+def test_reference_engine_leaks_recurrent_state():
+    """R12: rwkv6, float32, a reference engine of batch 1 serves request 1
+    after request 0 in the same slot and answers it otherwise than alone;
+    the port answers it as alone. This test asserts the reference's fault,
+    so it fails on the day R12 is fixed."""
+    rm, rparams, tm, tparams = _pair("float32", arch="rwkv6-1.6b")
+    rng = np.random.default_rng(0)
+    reqs = [(0, rng.integers(0, 512, 5).astype(np.int32), 4),
+            (1, rng.integers(0, 512, 6).astype(np.int32), 8)]
+    ref = _serve(RServeEngine(rm, rparams, batch_size=1, max_seq=64),
+                 RRequest, reqs)
+    ref_alone = _serve(RServeEngine(rm, rparams, batch_size=1, max_seq=64),
+                       RRequest, [reqs[1]])
+    port = _serve(_port_engine(tm, tparams, 1), Request, reqs)
+    assert not np.array_equal(ref[1].tokens, ref_alone[1].tokens)
+    assert np.array_equal(port[1].tokens, ref_alone[1].tokens)
+    assert np.array_equal(port[0].tokens, ref[0].tokens)
+
+
+def test_smoke_recurrent_phase_rehearses_on_cpu():
+    """``chip_smoke.py``'s ``lm_recurrent`` phase on the smoke configs
+    (recurrentgemma at 5 layers, a ring check of 40 tokens past its window
+    of 16): both prefills launch no K5, the WKV's and the windowed
+    attention's shares are measured, both float32 checks pass, and each
+    engine's second wave enters used slots, checked fresh on admission."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    out = smoke.phase_lm_recurrent(
+        torch.device("cpu"), 0, rwkv_cfg=get_smoke("rwkv6-1.6b"),
+        griffin_cfg=dataclasses.replace(get_smoke("recurrentgemma-9b"),
+                                        n_layers=5),
+        seq=256, prompt=16, max_new=8, ring_tokens=40)
+    rw, gr = out["rwkv6"], out["recurrentgemma"]
+    assert rw["k5_launches"] == gr["k5_launches"] == 0
+    assert 0 < rw["wkv_share"] < 1 and 0 < gr["attention_share"] < 1
+    assert rw["check"]["argmax_equal"] and gr["ring_check"]["tokens"] == 40
+    for model in (rw, gr):
+        assert model["serve"]["pages"] == 0
+        assert model["serve"]["admissions"]["into_used_slots"] == 4
+    assert gr["serve"]["admissions"]["ring_rows"] == 8
+
+
 def _table_ops(rng):
     """A run of inserts, removals and lookups that crosses several PLEX
     rebuilds (threshold 64)."""
@@ -218,6 +355,20 @@ def test_moe_launcher_runs_on_cpu(capsys, monkeypatch, arch, production):
     assert re.search(r"\[serve\] 3 requests, 12 tokens, .* tok/s\); page "
                      r"table: 3 pages, 0 PLEX rebuilds", out), out
     assert bool(absorbed) == (production and arch == "deepseek-v2-236b")
+
+
+@pytest.mark.parametrize("production", [False, True])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_launcher_runs_on_cpu(capsys, arch, production):
+    """The recurrent archs through the launcher: no page is swapped out;
+    ``--production`` (recurrentgemma: ``kv_replicate_to`` 16) leaves the
+    ``wattn`` ring at its one KV head."""
+    launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--requests", "3", "--max-new", "4"]
+                      + (["--production"] if production else []))
+    out = capsys.readouterr().out
+    assert re.search(r"\[serve\] 3 requests, 12 tokens, .* tok/s\); page "
+                     r"table: 0 pages, 0 PLEX rebuilds", out), out
 
 
 def test_engine_defaults_to_the_card(monkeypatch):
