@@ -98,7 +98,24 @@ card, then drives the port's three paths:
   check at one pattern of 3 layers (prefill against 2,112 decode steps
   through the 2,048-position ring) and the engine; every admitted slot's
   recurrent rows must read zero and its ring rows empty before its first
-  step.
+  step;
+* the frontends (``lm_frontends``): hubert-xlarge at full width and depth
+  (48 layers, head dim 80, bidirectional), an encode of 32,768 frame
+  embeddings with one K5 launch a layer, all on the Hopper kernel (the
+  first and last replayed, K5 timed beside SDPA), and a float32 check at 3
+  layers over 1,500 frames (30 s of audio) of the SIMT kernel against the
+  plain version; qwen2-vl-2b at full width and depth, a 32,768-token
+  prefill with 256 patch embeddings (one K5 launch a layer), the float32
+  prefill-against-decode check and the engine;
+* training (``lm_train``): qwen2-vl-2b at full width and depth through
+  ``make_train_step`` (AdamW, remat "full": K5 forward twice a layer, the
+  plain attention's gradient), train_4k's 4,096 tokens at batch 8, six
+  steps over the packed pipeline's batches with patch embeddings (the
+  step time, tokens/s, peak memory, a replayed K5 launch, the attention
+  backward's share); then ``repro_torch.launch.train`` at ``--smoke``
+  size, stopped after a checkpoint and resumed, equal to an uninterrupted
+  run under deterministic algorithms. The ``examples`` phase also runs
+  ``train_small`` and ``packing_pipeline``.
 
 Each phase prints one JSON line, and ``phase_seconds`` each phase's host
 wall time; the ``kernels`` line carries each kernel's
@@ -2625,10 +2642,17 @@ def default_fallback_raises(device, keys, q) -> list:
 # the five example drills (repro_torch.launch) and their arguments on the
 # card: none, so each runs at the reference example's defaults
 EXAMPLES = (("quickstart", []), ("save_open", []), ("mesh_serve", []),
-            ("chaos_drill", []), ("serve_paged", []))
+            ("chaos_drill", []), ("serve_paged", []), ("train_small", []),
+            ("packing_pipeline", []))
 # the kernel launches each drill must make on the card
 EXAMPLE_NEEDS = {"quickstart": "window_probe", "save_open": "stacked_lookup",
-                 "mesh_serve": "stacked_lookup"}
+                 "mesh_serve": "stacked_lookup",
+                 "train_small": "flash_attention"}
+# drills whose outputs go under --dir, or checkpoints under --ckpt-dir; the
+# packing drill runs on the host, as the reference's, and takes no --device
+EXAMPLE_DIR_FLAG = {"save_open": "--dir", "mesh_serve": "--dir",
+                    "chaos_drill": "--dir", "train_small": "--ckpt-dir"}
+HOST_EXAMPLES = ("packing_pipeline",)
 
 
 def phase_examples(device, card: str) -> dict:
@@ -2650,9 +2674,10 @@ def phase_examples(device, card: str) -> dict:
     for name, args in EXAMPLES:
         mod = importlib.import_module(f"repro_torch.launch.{name}")
         tmp = pathlib.Path(tempfile.mkdtemp(prefix=f"plex-{name}-"))
-        argv = list(args) + ["--device", str(device)]
-        if name in ("save_open", "mesh_serve", "chaos_drill"):
-            argv += ["--dir", str(tmp)]
+        argv = list(args) + ([] if name in HOST_EXAMPLES
+                             else ["--device", str(device)])
+        if name in EXAMPLE_DIR_FLAG:
+            argv += [EXAMPLE_DIR_FLAG[name], str(tmp)]
         SL.launches = SEG.fused_launches = FA.launches = 0
         t0 = time.perf_counter()
         try:
@@ -3002,6 +3027,13 @@ ATTN_SHAPES = ((2, 256, 4, 2, 64), (1, 512, 8, 8, 32), (2, 256, 4, 1, 128),
 ATTN_BF16_CASES = ((1, 1000, 6, 2, 96, True), (1, 4096, 24, 8, 128, True),
                    (1, 4096, 24, 8, 128, False), (1, 1000, 4, 2, 16, False),
                    (2, 333, 4, 1, 32, False))
+# hubert-xlarge's head dim, 80 (five 16-column panels on the Hopper kernel,
+# five 16-column loads a key row on the SIMT one), in both dtypes, causal
+# and not: its 16 heads at 1,500 frames (30 s of audio at 50 frames/s,
+# ragged against both kernels' key tiles) and a GQA case at a ragged 333
+ATTN_D80_SHAPES = ((1, 1500, 16, 16, 80), (2, 333, 4, 2, 80))
+# hubert's heads beside SDPA, non-causal as its encoder attends
+ATTN_HUBERT_TIMING = (1, 4096, 16, 16, 80)
 ATTN_TIMING_SEQ = 4096                  # bf16 kernel beside SDPA, each D
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # the reference's tolerances
 LM_ARCH = "minitron-4b"
@@ -3171,6 +3203,7 @@ def phase_attention(device, seed: int,
         return [torch.randn(shape, generator=gen, device=device).to(dt)
                 for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d))]
     cases = [(*shape, causal, dtype) for shape in ATTN_SHAPES
+             + ATTN_D80_SHAPES
              for causal in (True, False)
              for dtype in ("float32", "bfloat16")]
     cases += [(*case, "bfloat16") for case in ATTN_BF16_CASES]
@@ -3201,19 +3234,23 @@ def phase_attention(device, seed: int,
             check_exact(row["exact_f64_max_mean_err"], f"K5 case {row}")
         worst = max(worst, err)
     timing = []
-    for d in FA.SUPPORTED_HEAD_DIMS:
-        q, k, v = qkv(1, timing_seq, 24, 8, d, torch.bfloat16)
+    _, _, hh, hkv, hd = ATTN_HUBERT_TIMING
+    for b, s, h, kvh, d, causal in [
+            (1, timing_seq, 24, 8, d, True) for d in FA.SUPPORTED_HEAD_DIMS
+    ] + [(1, timing_seq, hh, hkv, hd, False)]:
+        q, k, v = qkv(b, s, h, kvh, d, torch.bfloat16)
         qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        ms = device_ms(lambda: FA.flash_attention_fwd(q, k, v), device)
-        row = dict(d=d, b=1, s=timing_seq, h=24, kvh=8, causal=True,
+        ms = device_ms(lambda: FA.flash_attention_fwd(q, k, v,
+                                                      causal=causal), device)
+        row = dict(d=d, b=b, s=s, h=h, kvh=kvh, causal=causal,
                    dtype="bfloat16", kernel_ms=ms,
                    library_ms=device_ms(
                        lambda: F.scaled_dot_product_attention(
-                           qs, ks, vs, is_causal=True, enable_gqa=True),
+                           qs, ks, vs, is_causal=causal, enable_gqa=True),
                        device),
-                   bound_ms=attention_bound_ms(q, k, True)[0],
+                   bound_ms=attention_bound_ms(q, k, causal)[0],
                    kernel_tflops=attention_flops(
-                       1, timing_seq, timing_seq, 24, d, True) / (ms * 1e9))
+                       b, s, s, h, d, causal) / (ms * 1e9))
         emit("attention_timing", **row)
         timing.append(row)
     return dict(cases=len(cases), max_abs_err=worst, timing=timing)
@@ -3330,8 +3367,8 @@ def k5_times(q, k, v, kw, device) -> dict:
         qs, ks, vs, is_causal=causal, enable_gqa=True), device, reps=3)
     return dict(shape=[b, sq, h, k.shape[2], d], kernel_ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms,
-                library="F.scaled_dot_product_attention(is_causal=True, "
-                        "enable_gqa=True)",
+                library=f"F.scaled_dot_product_attention(is_causal="
+                        f"{causal}, enable_gqa=True)",
                 bound_ms=bound_ms, bound_by=bound_by,
                 kernel_tflops=flops / (ms * 1e9))
 
@@ -3716,28 +3753,30 @@ def share_of_prefill(device, prefill, params, tokens, layer: str,
             f"{key}_share": part / whole}
 
 
-def prefill_main_path(device, cfg, prefill, params, tokens) -> dict:
+def prefill_main_path(device, cfg, prefill, params, tokens,
+                      batch=None) -> dict:
     """The main path of one model: a bf16 prefill through
-    ``make_prefill_step``, K5's count set to 0 just before and read just
+    ``make_prefill_step`` of ``{"tokens": tokens}`` (or ``batch``: frames,
+    patch embeddings), K5's count set to 0 just before and read just
     after; the kernel each launch took (by q's dtype), time to first token,
     peak memory and each MoE layer's routing (none for a model without
     MoE layers)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
+    batch = batch if batch is not None else {"tokens": tokens}
     if device.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     with recorded_attention(keep=()) as att, recorded_routing() as rr:
         FA.launches = 0
-        logits, ttft_s = timed(lambda: prefill(params, {"tokens": tokens}),
-                               device)
+        logits, ttft_s = timed(lambda: prefill(params, batch), device)
         launches = FA.launches
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
     check(tuple(logits.shape) == (1, cfg.vocab)
           and bool(torch.isfinite(logits.float()).all()),
           f"{cfg.name}: prefill logits not finite or misshapen")
-    seq = tokens.shape[1]
+    seq = next(iter(batch.values())).shape[1]
     return dict(seq=seq, batch=1, ttft_s=ttft_s,
                 prefill_tokens_per_s=seq / ttft_s, k5_launches=launches,
                 k5_calls=len(att.dtypes),
@@ -4134,6 +4173,385 @@ def phase_lm_recurrent(device, seed: int, rwkv_cfg=None, griffin_cfg=None,
     return out
 
 
+# ------------------------------------------------------ the frontends ----
+
+HUBERT_ARCH = "hubert-xlarge"
+VL_ARCH = "qwen2-vl-2b"
+HUBERT_CHECK_LAYERS = 3        # the float32 kernel-against-plain check
+HUBERT_CHECK_FRAMES = 1500     # 30 s of audio at 50 frames/s: ragged tiles
+VL_PATCHES = 256               # launch/specs.py's patch embeddings a sample
+
+
+class plain_attention:
+    """Within the block, ``layers.attention.flash_attention_fwd`` is K5's
+    plain version at the kernel's key tile (no launch): the same forward
+    as the main path with the kernel taken out."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.layers import attention as A
+        self._orig = A.flash_attention_fwd
+
+        def plain(q, k, v, **kw):
+            return FA.flash_attention_plain(
+                q, k, v, block_k=FA.kernel_block_k(q.dtype, q.shape[-1]),
+                **kw)
+        A.flash_attention_fwd = plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import attention as A
+        A.flash_attention_fwd = self._orig
+
+
+def recorded_prefill(device, cfg, prefill, params, batch, phase: str
+                     ) -> dict:
+    """A prefill whose first and last K5 launches are kept, replayed
+    through the plain version (``replay_k5_launch``) and timed at their
+    shape beside the plain version, SDPA and the bound (``k5_times``)."""
+    last = cfg.n_layers - 1
+    with recorded_attention(keep={0, last}) as rec:
+        prefill(params, batch)
+    check(len(rec.dtypes) == cfg.n_layers,
+          f"{cfg.name}: {len(rec.dtypes)} K5 calls for {cfg.n_layers} "
+          "layers")
+    replays = [replay_k5_launch(call, phase) for call in rec.calls]
+    _, q, k, v, kw, _ = rec.calls[-1]
+    del rec
+    times = k5_times(q, k, v, kw, device)
+    return dict(replayed_launches=[r["launch"] for r in replays],
+                **replay_summary(replays), **times)
+
+
+def lm_frontends_hubert(device, seed: int, cfg, seq: int,
+                        check_frames: int = HUBERT_CHECK_FRAMES) -> dict:
+    """hubert-xlarge (encoder-only, bidirectional, D 80): a recorded bf16
+    encode of ``seq`` frame embeddings (its first and last K5 launches
+    replayed and timed), the main path (``make_prefill_step``: one K5
+    launch a layer, all on the Hopper kernel), then the float32 check at
+    ``HUBERT_CHECK_LAYERS`` layers over ``check_frames`` frames: the
+    forward through the SIMT kernel against the same forward through the
+    plain version, every position's logits."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import Model
+    from repro_torch.models.steps import make_prefill_step
+    emit("reduced", lm_arch=cfg.name, lm_prefill_batch=1,
+         of=SHAPES["prefill_32k"].global_batch, why="prefill_32k's global "
+         "batch of 32 cut to one sequence on one card")
+    model, params, n_params, init_s = drawn_model(device, seed, cfg)
+    prefill = make_prefill_step(model)
+    gen = torch.Generator(device=device).manual_seed(seed + 10)
+    frames = torch.randn((1, seq, cfg.d_model), generator=gen,
+                         device=device).to(torch.bfloat16)
+    _, warm_s = timed(lambda: prefill(params, {"frames": frames[:, :256]}),
+                      device)
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+               init_s=init_s, warmup_s=warm_s, head_dim=cfg.resolved_head_dim,
+               causal=cfg.causal,
+               **recorded_prefill(device, cfg, prefill, params,
+                                  {"frames": frames}, "lm_frontends_replay"))
+    out.update(prefill_main_path(device, cfg, prefill, params, None,
+                                 batch={"frames": frames}))
+    if device.type == "cuda":
+        check(out["k5_launches"] == cfg.n_layers,
+              f"K5 launched {out['k5_launches']} times in an encode of "
+              f"{cfg.n_layers} layers")
+        check(out["k5_kernels"] == ["flash_attention_sm90"],
+              f"hubert's K5 launches took {out['k5_kernels']}")
+    out["kernel_share_of_prefill"] = (out["k5_launches"] * out["kernel_ms"]
+                                      / (out["ttft_s"] * 1e3))
+    emit("reduced", lm_arch=cfg.name, f32_check_layers=HUBERT_CHECK_LAYERS,
+         of=cfg.n_layers, f32_check_frames=check_frames, why="the float32 "
+         "check runs the SIMT kernel and the plain version over every "
+         "position of a 30 s clip; three layers of the same weights keep it "
+         "to seconds")
+    cut = Model(dataclasses.replace(cfg, n_layers=HUBERT_CHECK_LAYERS,
+                                    dtype="float32"))
+    f32 = frames[:, :check_frames].float()
+    from repro_torch.kernels import flash_attention as FA
+    with torch.no_grad():
+        FA.launches = 0
+        x, _ = cut.forward(params, {"frames": f32})
+        got = cut.logits(params, x)[0].float()
+        launched = FA.launches
+        with plain_attention():
+            x, _ = cut.forward(params, {"frames": f32})
+            want = cut.logits(params, x)[0].float()
+    check_row = dict(dtype="float32", frames=check_frames,
+                     layers=HUBERT_CHECK_LAYERS, k5_launches=launched,
+                     **logit_agreement(want, got))
+    emit("lm_frontends_check", **check_row)
+    check(check_row["argmax_equal"] and check_row["max_rel_err"] <= 1e-3
+          and launched == (HUBERT_CHECK_LAYERS if device.type == "cuda"
+                           else 0),
+          f"hubert's float32 encode through K5 differs from the plain "
+          f"version: {check_row}")
+    out["check"] = check_row
+    return out
+
+
+def lm_frontends_vl(device, seed: int, cfg, seq: int, prompt: int,
+                    max_new: int) -> dict:
+    """qwen2-vl-2b (M-RoPE, GQA group 6, D 128): a bf16 prefill of ``seq``
+    tokens with ``VL_PATCHES`` patch embeddings over the first positions
+    (its last K5 launch replayed and timed), the main path (one K5 launch a
+    layer), the float32 prefill-against-decode check on its tokens, and
+    ``ServeEngine`` (token prompts, as the reference's engine takes)."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.models.steps import make_prefill_step
+    emit("reduced", lm_arch=cfg.name, lm_prefill_batch=1,
+         of=SHAPES["prefill_32k"].global_batch, why="prefill_32k's global "
+         "batch of 32 cut to one sequence on one card")
+    model, params, n_params, init_s = drawn_model(device, seed, cfg)
+    prefill = make_prefill_step(model)
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    tokens = torch.randint(0, cfg.vocab, (1, seq), generator=gen,
+                           device=device)
+    patches = torch.randn((1, VL_PATCHES, cfg.d_model), generator=gen,
+                          device=device).to(torch.bfloat16)
+    batch = {"tokens": tokens, "patch_embeds": patches}
+    _, warm_s = timed(lambda: prefill(params, {"tokens": tokens[:, :512],
+                                               "patch_embeds": patches}),
+                      device)
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+               init_s=init_s, warmup_s=warm_s, patches=VL_PATCHES,
+               **recorded_prefill(device, cfg, prefill, params, batch,
+                                  "lm_frontends_replay"))
+    out.update(prefill_main_path(device, cfg, prefill, params, tokens,
+                                 batch=batch))
+    if device.type == "cuda":
+        check(out["k5_launches"] == cfg.n_layers
+              and out["k5_kernels"] == ["flash_attention_sm90"],
+              f"qwen2-vl: {out['k5_launches']} K5 launches on "
+              f"{out['k5_kernels']} for {cfg.n_layers} layers")
+    out["kernel_share_of_prefill"] = (out["k5_launches"] * out["kernel_ms"]
+                                      / (out["ttft_s"] * 1e3))
+    out["check"], _ = lm_prefill_check(
+        device, dataclasses.replace(cfg, dtype="float32"), params,
+        tokens[:, :LM_CHECK_TOKENS], phase="lm_frontends_check")
+    out["serve"] = serve_aligned(device, seed, model, params, prompt,
+                                 max_new)
+    return out
+
+
+def phase_lm_frontends(device, seed: int, hubert_cfg=None, vl_cfg=None,
+                       seq: int = LM_PREFILL_SEQ,
+                       check_frames: int = HUBERT_CHECK_FRAMES,
+                       prompt: int = 64, max_new: int = 32) -> dict:
+    """The frames and patch-embedding frontends at full width and depth,
+    one model after the other: hubert-xlarge's encode, then qwen2-vl-2b's
+    prefill with patch embeddings and its engine."""
+    import torch
+    from repro_torch.configs import get_config
+    hubert_cfg = hubert_cfg or get_config(HUBERT_ARCH)
+    vl_cfg = vl_cfg or get_config(VL_ARCH)
+    hu = lm_frontends_hubert(device, seed, hubert_cfg, seq, check_frames)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    vl = lm_frontends_vl(device, seed, vl_cfg, seq, prompt, max_new)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"hubert": hu, "qwen2_vl": vl}
+    emit("lm_frontends", **out)
+    return out
+
+
+# ------------------------------------------------------------ training ----
+
+TRAIN_SHAPE = "train_4k"
+TRAIN_BATCH = 8                # train_4k's global batch of 256, cut
+TRAIN_STEPS = 6                # the first is the warm-up
+TRAIN_LR = 3e-4
+LAUNCHER_STEPS = 10            # the smoke launcher: a checkpoint every 5
+LAUNCHER_EVERY = 5
+
+
+def train_main_path(device, seed: int, cfg, seq: int, batch: int,
+                    steps: int) -> dict:
+    """``make_train_step`` on ``cfg`` at full width: ``steps`` steps over
+    the packed pipeline's batches (with ``VL_PATCHES`` patch embeddings a
+    sample, as ``launch/specs.py`` gives train_4k's vlm batches), K5's
+    count set to 0 before each step and read after. The first step is the
+    warm-up, and its first K5 launch is kept and replayed through the plain
+    version and timed; the last has CUDA events around the plain attention
+    backward (``layers.attention.attention_backward``) for its share."""
+    import torch
+    from repro_torch.data.packing import PackedPipeline, SyntheticCorpus
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import Model
+    from repro_torch.models.steps import init_train_state, make_train_step
+    model = Model(cfg)
+    (params, opt), init_s = timed(
+        lambda: init_train_state(model, seed, device), device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    corpus = SyntheticCorpus(n_docs=20_000, vocab=cfg.vocab, seed=seed)
+    pipe = PackedPipeline(corpus, seq_len=seq, global_batch=batch)
+    gen = torch.Generator(device=device).manual_seed(seed + 12)
+    step_fn = make_train_step(model, lr=TRAIN_LR)
+    rows, replay = [], None
+    for i in range(steps):
+        b = {k: torch.from_numpy(v).to(device)
+             for k, v in pipe.batch(i).items()}
+        if cfg.mrope_sections:
+            b["patch_embeds"] = torch.randn(
+                (batch, VL_PATCHES, cfg.d_model), generator=gen,
+                device=device).to(torch.bfloat16)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        FA.launches = 0
+        if i == 0:
+            with recorded_attention(keep={0}) as rec:
+                (loss, params, opt), sec = timed(
+                    lambda: step_fn(params, opt, b), device)
+            # the inputs and output as the kernel saw them, off the graph
+            n, q, k, v, kw, o = rec.calls[0]
+            replay = (n, q.detach(), k.detach(), v.detach(), kw, o.detach())
+            del q, k, v, o
+            del rec
+        elif i == steps - 1:
+            with evented_calls(device, "attention",
+                               "attention_backward") as ev:
+                t0 = ev.mark()
+                (loss, params, opt), sec = timed(
+                    lambda: step_fn(params, opt, b), device)
+                t1 = ev.mark()
+                whole = ev.ms(t0, t1)
+                bwd = sum(ev.ms(a, c) for a, c in ev.spans)
+                n_bwd = len(ev.spans)
+        else:
+            (loss, params, opt), sec = timed(lambda: step_fn(params, opt, b),
+                                             device)
+        launches = FA.launches
+        peak = (torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else None)
+        rows.append(dict(step=i, loss=float(loss), seconds=sec,
+                         k5_launches=launches, max_memory_allocated=peak))
+        emit("lm_train_step", arch=cfg.name, **rows[-1])
+        check(bool(np.isfinite(rows[-1]["loss"])),
+              f"{cfg.name}: step {i}'s loss is {rows[-1]['loss']}")
+        if device.type == "cuda":
+            per_pass = cfg.n_layers * (2 if cfg.remat != "none" else 1)
+            check(launches == per_pass,
+                  f"{cfg.name}: {launches} K5 launches in train step {i}, "
+                  f"{per_pass} expected (a forward, and its recompute "
+                  "under remat)")
+    _, q, k, v, kw, _ = replay
+    rep = replay_k5_launch(replay, "lm_train_replay")
+    del replay
+    times = k5_times(q, k, v, kw, device)
+    del q, k, v
+    timed_steps = [r["seconds"] for r in rows[1:]]
+    med = float(np.median(timed_steps))
+    tokens = seq * batch
+    return dict(arch=cfg.name, params=n_params, init_s=init_s, seq=seq,
+                batch=batch, remat=cfg.remat, steps=rows,
+                warmup_s=rows[0]["seconds"], step_s_median=med,
+                tokens_per_s=tokens / med,
+                model_tflops_per_step=6 * n_params * tokens / 1e12,
+                max_memory_allocated=max(r["max_memory_allocated"] or 0
+                                         for r in rows[1:]),
+                k5_launches_per_step=rows[-1]["k5_launches"],
+                k5_launches=sum(r["k5_launches"] for r in rows),
+                attention_backward_calls=n_bwd,
+                attention_backward_ms=bwd, evented_step_ms=whole,
+                attention_backward_share=bwd / whole,
+                **{f"replay_{key}": val for key, val in rep.items()},
+                **times)
+
+
+def launcher_resume(device, seed: int, arch: str = VL_ARCH,
+                    steps: int = LAUNCHER_STEPS,
+                    every: int = LAUNCHER_EVERY) -> dict:
+    """``repro_torch.launch.train`` at ``--smoke`` size on the card,
+    deterministic algorithms on: an uninterrupted run of ``steps`` steps,
+    and a run stopped after step ``every`` (a checkpoint every ``every``
+    steps) then launched again on its directory, which resumes from that
+    checkpoint. Its losses and final parameters must equal the
+    uninterrupted run's within the reference's tolerances
+    (``tests/test_system.py``: 1e-4 relative on the losses, 1e-5 on the
+    parameters)."""
+    import shutil
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as T
+    from repro_torch.optim.adamw import leaves
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="plex-train-"))
+
+    def args(d):
+        return T.parse_args(["--arch", arch, "--smoke", "--steps",
+                             str(steps), "--seq", "64", "--batch", "8",
+                             "--ckpt-every", str(every), "--ckpt-dir",
+                             str(tmp / d), "--device", str(device)])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            FA.launches = 0
+            whole, whole_s = timed(lambda: T.train(args("whole")), device)
+            launches = FA.launches
+            first = T.train(args("cut"), stop_after=every)
+            rest = T.train(args("cut"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    nondet = sorted({str(w.message).split("\n")[0][:120] for w in caught
+                     if "deterministic" in str(w.message)})
+    resumed = {**first["losses"], **rest["losses"]}
+    loss_rel = max(abs(resumed[s] - whole["losses"][s])
+                   / max(abs(whole["losses"][s]), 1e-12)
+                   for s in whole["losses"])
+    param_err = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(leaves(whole["params"]),
+                                    leaves(rest["params"])))
+    out = dict(arch=arch, smoke=True, steps=steps, ckpt_every=every,
+               first_checkpoints=first["checkpoints"],
+               resumed_from=rest["start"] - 1, seconds=whole_s,
+               k5_launches=launches, losses=whole["losses"],
+               max_loss_rel_err=loss_rel, max_param_abs_err=param_err,
+               bit_exact=loss_rel == 0 and param_err == 0,
+               nondeterministic_ops=nondet, report=rest["report"])
+    emit("lm_train_launcher", **out)
+    check(first["checkpoints"] == [0, every] and rest["start"] == every + 1,
+          f"the launcher resumed from {rest['start'] - 1}, checkpoints "
+          f"{first['checkpoints']}")
+    check(loss_rel <= 1e-4 and param_err <= 1e-5,
+          f"the resumed run differs from the uninterrupted one: {out}")
+    if device.type == "cuda":
+        check(launches > 0, "the launcher's training made no K5 launch")
+    return out
+
+
+def phase_lm_train(device, seed: int, cfg=None, seq: int | None = None,
+                   batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS
+                   ) -> dict:
+    """Training on the card: qwen2-vl-2b at full width and depth through
+    ``make_train_step`` (``train_main_path``), then the smoke launcher's
+    checkpoint and resume (``launcher_resume``)."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    cfg = cfg or get_config(VL_ARCH)
+    shape = SHAPES[TRAIN_SHAPE]
+    seq = seq or shape.seq_len
+    emit("reduced", lm_arch=cfg.name, train_batch=batch,
+         of=shape.global_batch, why=f"{TRAIN_SHAPE}'s global batch of "
+         f"{shape.global_batch} cut to {batch} sequences on one card "
+         "(float32 params, grads, m and v take 16 B a parameter)")
+    out = train_main_path(device, seed, cfg, seq, batch, steps)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["launcher"] = launcher_resume(device, seed)
+    emit("lm_train", **out)
+    return out
+
+
 # ----------------------------------------------------------------- main ----
 
 class PhaseClock:
@@ -4155,6 +4573,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-keys", type=int, default=SERVE_KEYS)
     ap.add_argument("--index-keys", type=int, default=INDEX_KEYS)
     args = ap.parse_args(argv)
+    # cuBLAS reads its workspace setting when it first starts; this one is
+    # what deterministic algorithms need (the launcher check of lm_train)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -4243,8 +4664,16 @@ def main(argv=None) -> int:
     lap("lm_moe")
     phase_lm_recurrent(device, args.seed)
     lap("lm_recurrent")
+    frontends = phase_lm_frontends(device, args.seed)
+    lap("lm_frontends")
+    train = phase_lm_train(device, args.seed)
+    lap("lm_train")
     emit("phase_seconds", **lap.seconds)
     qwen = lm_moe["qwen2_moe"]
+    hubert, vl = frontends["hubert"], frontends["qwen2_vl"]
+    k5_keys = ("k5_launches", "k5_kernels", "shape", "kernel_ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms", "max_abs_err",
+               "replayed_launches")
     csrc = "src/repro_torch/kernels/csrc/"
     k2, k3 = ("src/repro/kernels/plex_segment_lookup.py:302",
               "src/repro/kernels/plex_segment_lookup.py:327")
@@ -4344,17 +4773,27 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": csrc + prefill["kernel"] + ".cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
-        "launches": prefill["launches"] + qwen["k5_launches"],
+        "launches": (prefill["launches"] + qwen["k5_launches"]
+                     + hubert["k5_launches"] + vl["k5_launches"]
+                     + train["k5_launches"]),
         "max_abs_err": max(attn["max_abs_err"], prefill["max_abs_err"],
-                           qwen["max_abs_err"]),
+                           qwen["max_abs_err"], hubert["max_abs_err"],
+                           vl["max_abs_err"], train["replay_max_abs_err"]),
         "ms": prefill["kernel_ms"], "plain_ms": prefill["plain_ms"],
         "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
         "library_ms": prefill["library_ms"], "matches_plain": True,
-        # qwen2-moe's prefill (lm_moe): its launches, at its own shape
-        "qwen2_moe": {k: qwen[k] for k in (
-            "k5_launches", "k5_kernels", "shape", "kernel_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "max_abs_err",
-            "replayed_launches")}}]}),
+        # qwen2-moe's prefill (lm_moe), hubert's encode at D 80 and
+        # qwen2-vl's prefill (lm_frontends), qwen2-vl's training forward
+        # and its recompute (lm_train): each its launches, at its shape
+        "qwen2_moe": {k: qwen[k] for k in k5_keys},
+        "hubert": {k: hubert[k] for k in k5_keys},
+        "qwen2_vl": {k: vl[k] for k in k5_keys},
+        "train": {"k5_launches": train["k5_launches"],
+                  "k5_launches_per_step": train["k5_launches_per_step"],
+                  "max_abs_err": train["replay_max_abs_err"],
+                  **{k: train[k] for k in (
+                      "shape", "kernel_ms", "plain_ms", "bound_ms",
+                      "bound_by", "library_ms")}}}]}),
         flush=True)
     print(info["card"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,8 @@
 """Carry state across from plain arrays: a port ``PLEX`` or ``Snapshot``,
-and the LM's parameters (``lm_params_from_arrays``).
+and the LM's parameters and training state, both ways
+(``lm_params_from_arrays`` / ``lm_arrays_from_params``,
+``train_state_from_arrays`` / ``train_state_to_arrays``: the reference's
+segment-stacked layout, in which checkpoints are written).
 
 ``plex_from_arrays`` takes one index's key array, spline, radix layer and
 tuning; ``snapshot_from_arrays`` takes, as numpy arrays, what a sharded PLEX
@@ -23,6 +26,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from .checkpoint.store import to_host
 from .configs.base import ArchConfig
 from .core.autotune import TuneResult
 from .core.cht import CHT
@@ -32,6 +36,7 @@ from .core.radix_table import RadixTable
 from .core.spline import Spline
 from .device import resolve_device
 from .models.lm import build_segments, check_ported
+from .optim import AdamWState
 
 
 def _layer(spec: Mapping[str, Any], n_spline: int):
@@ -112,9 +117,56 @@ def lm_params_from_arrays(cfg: ArchConfig, tree: Mapping[str, Any],
     RG-LRU's), all on ``device`` (default: the CUDA card). The port then
     computes the reference model's function."""
     check_ported(cfg)
-    out = dict(tree)
+    out = dict(tree)            # embed, in_proj, final_norm, lm_head
     for si, seg in enumerate(build_segments(cfg)):
         out[f"seg{si}"] = {
             blk: [_unstack(leaves, r) for r in range(seg.repeats)]
             for blk, leaves in tree[f"seg{si}"].items()}
     return _to_tensors(out, resolve_device(device))
+
+
+def _stack(layers: list):
+    """One tree from a layer's trees: each leaf stacked on a new leading
+    dim, as numpy (tensors copied to the host)."""
+    if isinstance(layers[0], Mapping):
+        return {k: _stack([t[k] for t in layers]) for k in layers[0]}
+    return np.stack([to_host(t) for t in layers])
+
+
+def lm_arrays_from_params(cfg: ArchConfig, params: Mapping[str, Any]
+                          ) -> dict:
+    """The reference's params pytree, as numpy, from the port ``Model``'s
+    parameters (or any tree shaped like them, AdamW's moments too): each
+    segment's layers stacked into ``[n, ...]`` leaves, the rest copied to
+    the host as it is; the inverse of ``lm_params_from_arrays``."""
+    check_ported(cfg)
+    out = {k: to_host(v) for k, v in params.items()
+           if not k.startswith("seg")}
+    for si, _ in enumerate(build_segments(cfg)):
+        out[f"seg{si}"] = {blk: _stack(layers)
+                           for blk, layers in params[f"seg{si}"].items()}
+    return out
+
+
+def train_state_to_arrays(cfg: ArchConfig, params, opt: AdamWState) -> dict:
+    """``{"params": ..., "opt": AdamWState(step, m, v)}`` as numpy in the
+    reference's layout: what its training launcher checkpoints, so the
+    files the port writes are the reference's for the same state."""
+    return {"params": lm_arrays_from_params(cfg, params),
+            "opt": AdamWState(step=to_host(opt.step),
+                              m=lm_arrays_from_params(cfg, opt.m),
+                              v=lm_arrays_from_params(cfg, opt.v))}
+
+
+def train_state_from_arrays(cfg: ArchConfig, tree: Mapping[str, Any],
+                            device=None) -> tuple[dict, AdamWState]:
+    """(params, AdamW state) of the port on ``device`` (default: the card)
+    from ``{"params", "opt"}`` in the reference's layout (a restored
+    checkpoint of either package)."""
+    device = resolve_device(device)
+    opt = tree["opt"]
+    return (lm_params_from_arrays(cfg, tree["params"], device),
+            AdamWState(step=torch.from_numpy(
+                           np.array(opt[0], dtype=np.int32)).to(device),
+                       m=lm_params_from_arrays(cfg, opt[1], device),
+                       v=lm_params_from_arrays(cfg, opt[2], device)))

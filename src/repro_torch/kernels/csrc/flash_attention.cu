@@ -237,6 +237,7 @@ int launch_d(const FlashParams* p, cudaStream_t st) {
     case 16: return launch<16>(p, st);
     case 32: return launch<32>(p, st);
     case 64: return launch<64>(p, st);
+    case 80: return launch<80>(p, st);
     case 96: return launch<96>(p, st);
     case 128: return launch<128>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -25,8 +25,11 @@
 //   transposed or copied on the host; rows past Sq or Skv arrive as zeros.
 // * Tiles are panels of PW columns, PW*2 bytes a row, in the matching
 //   swizzle: 128 bytes for D 64 and 128, 64 bytes for D 32 and 96, 32 bytes
-//   for D 16. A TMA box's inner extent is its swizzle span, and the wgmma
-//   descriptors carry the same swizzle mode.
+//   for D 16 and 80 (hubert's heads: five 16-column panels). A TMA box's
+//   inner extent is its swizzle span, and the wgmma descriptors carry the
+//   same swizzle mode; the v descriptor steps from panel to panel by its
+//   leading byte offset, so q.k^T takes one panel a k-step and p.v one
+//   m64nDk16 over all of them.
 // * S = q.k^T is wgmma with both operands in shared memory, K-major; S sits
 //   in registers (64 x 128 f32 a warpgroup). p is rounded to bf16 in
 //   registers and fed back as wgmma's A operand (the accumulator layout is
@@ -238,6 +241,21 @@ template <> __device__ __forceinline__ void wgmma_rs<64>(
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : F16(0), F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<80>(
+    float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : F16(0), F16(16), F8(32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -588,6 +606,7 @@ int flash_attention_sm90_fwd(const FlashParams* p, void* stream) {
     case 16: return launch<16>(p, st);
     case 32: return launch<32>(p, st);
     case 64: return launch<64>(p, st);
+    case 80: return launch<80>(p, st);
     case 96: return launch<96>(p, st);
     case 128: return launch<128>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

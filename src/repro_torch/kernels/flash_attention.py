@@ -32,7 +32,7 @@ import torch
 from ._build import check_launch, check_params_size, load_library
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # each kernel's key tile: the plain version with ``block_k`` at the kernel's
 # tile rescales at the same keys, so p is rounded against the same running max
 _BLOCK_K = {torch.float32: 64, torch.bfloat16: 128}

@@ -7,9 +7,17 @@ accumulator), with causal, sliding-window, valid-length and explicit
 key-position masks, GQA head groups, split K and V head dims, and decode
 (Sq = 1 against a cache at ``q_offset``). ``apply_gqa``'s prefill branch
 (no cache, no window) is K5's function and calls its wrapper,
-``kernels.flash_attention.flash_attention_fwd``: the kernel on CUDA tensors,
-its plain version on CPU tensors. Decode stays ``flash_attention``, as the
-reference computes it outside any Pallas kernel.
+``kernels.flash_attention.flash_attention_fwd``: the kernel on CUDA
+tensors, its plain version on CPU tensors. Decode stays
+``flash_attention``, as the reference computes it outside any Pallas
+kernel.
+
+The prefill branch goes through ``K5Attention``, whose forward is K5's
+wrapper; without a gradient to take that is all it does. Its backward
+recomputes ``flash_attention`` (the reference's jnp function, which is what
+JAX differentiates: the reference has no backward kernel) under autograd,
+``BACKWARD_ROWS`` query rows at a time, and returns its gradients; a causal
+row block reads only the key chunks its rows can see.
 """
 from __future__ import annotations
 
@@ -24,6 +32,10 @@ if TYPE_CHECKING:
     from ..models.init import ParamInit
 
 NEG_INF = -1e30
+# query rows a backward step recomputes at once: rows are independent, so
+# the gradient is the same function, and one step's float32 scores stay at
+# B x BACKWARD_ROWS x H x Skv (2.1 GB at batch 8, 12 heads, 4,096 keys)
+BACKWARD_ROWS = 1024
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -78,6 +90,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, h, dv).to(q.dtype)
 
 
+class K5Attention(torch.autograd.Function):
+    """``flash_attention_fwd`` (K5) forward; the backward recomputes the
+    plain ``flash_attention`` under autograd, a block of query rows at a
+    time, and returns its gradients for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention_fwd(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, dout, causal=ctx.causal),
+                None)
+
+
+def attention_backward(q, k, v, dout, *, causal: bool,
+                       rows: int = BACKWARD_ROWS):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal,
+    q_offset=0)`` against ``dout``, recomputed under autograd over
+    ``rows`` query rows at a time (row block i as q_offset i: the same
+    masks, so the same function). A causal block reads the keys up to the
+    end of the last of ``flash_attention``'s key chunks that its rows can
+    see: the chunks past it are fully masked, an exact no-op of the online
+    softmax, and the chunks kept are the same, so the numbers are too. The
+    blocks' dk and dv are summed in float32 and rounded to k's and v's
+    dtype once."""
+    sq, skv = q.shape[1], k.shape[1]
+    if sq == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    chunk = skv // max(skv // 1024, 1)      # flash_attention's key chunk
+    dqs, dk_sum, dv_sum = [], 0.0, 0.0
+    with torch.enable_grad():
+        kk = k.detach().requires_grad_()
+        vv = v.detach().requires_grad_()
+        for r0 in range(0, sq, rows):
+            qq = q[:, r0:r0 + rows].detach().requires_grad_()
+            end = skv
+            if causal:
+                seen = min(r0 + rows, sq)       # keys [0, seen) are visible
+                end = min(skv, -(-seen // chunk) * chunk)
+            out = flash_attention(qq, kk[:, :end], vv[:, :end],
+                                  causal=causal, q_offset=r0, chunk=chunk)
+            dq, dk, dv = torch.autograd.grad(
+                out, (qq, kk, vv), dout[:, r0:r0 + rows])
+            dqs.append(dq)
+            dk_sum = dk_sum + dk.float()
+            dv_sum = dv_sum + dv.float()
+    return (torch.cat(dqs, dim=1), dk_sum.to(k.dtype), dv_sum.to(v.dtype))
+
+
 def init_gqa(col: "ParamInit", n: int, d_model: int, n_heads: int,
              n_kv: int, head_dim: int) -> dict:
     """One layer's attention weights; ``n`` is its segment's layer count
@@ -115,7 +180,7 @@ def apply_gqa(p: dict, x: torch.Tensor, cfg, *, pos_ids, cache=None,
 
     if cache is None:
         if window == 0:
-            out = flash_attention_fwd(q, k, v, causal=causal)
+            out = K5Attention.apply(q, k, v, causal)
         else:
             out = flash_attention(q, k, v, causal=causal, q_offset=0,
                                   window=window)

@@ -22,11 +22,17 @@ layout, one entry a segment position, ``[n, B, ...]``:
 the step's position, recurrent state is replaced by ``copy_`` into the
 cache's storage, so the cache it returns is the one it was given.
 
-Ported kinds: mixers ``gqa``, ``mla``, ``wattn``, ``rwkv`` and ``rglru``,
-MLPs ``mlp``, ``moe`` (whose aux losses ``forward`` sums) and ``rwkv_cm``,
-``parallel_block``, ``tie_embeddings``, M-RoPE and ``kv_replicate_to``. The
-others raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+Every kind of the reference runs: mixers ``gqa``, ``mla``, ``wattn``,
+``rwkv`` and ``rglru``, MLPs ``mlp``, ``moe`` (whose aux losses ``forward``
+sums) and ``rwkv_cm``, ``parallel_block``, ``tie_embeddings``, M-RoPE,
+``kv_replicate_to``, and both frontends: ``frames`` (precomputed frame
+embeddings ``[B, S, d]`` through ``in_proj``, hubert) and ``patch_embeds``
+(precomputed patch embeddings ``[B, P, d]`` in place of the first P
+positions' token embeddings, qwen2-vl; M-RoPE ids stay text-mode).
+
+``forward`` is also the training forward: ``cfg.remat`` recomputes each
+layer in the backward pass (``_remat``), as the reference's
+``jax.checkpoint`` around each segment body does.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..layers.attention import apply_gqa, flash_attention, init_gqa
+from ..layers.grad import taking_grad
 from ..layers.mla import apply_mla, init_mla
 from ..layers.mlp import apply_mlp, init_mlp
 from ..layers.moe import apply_moe, init_moe
@@ -50,20 +57,9 @@ from .init import ParamInit, torch_dtype
 
 MIXERS = ("gqa", "mla", "wattn", "rwkv", "rglru")
 MLPS = ("mlp", "moe", "rwkv_cm")
+FRONTENDS = ("tokens", "frames")
+REMAT = ("none", "dots", "full")
 EMPTY_POS = -10**9          # a ring slot no position has been written to
-
-# kinds of the reference this port does not run yet, with where they are
-# ported (ROADMAP queue 1, item 12)
-UNPORTED = {
-    "frames": "the frames frontend (ROADMAP queue 1, item 12f)",
-    "patch_embeds": "the patch-embedding frontend (ROADMAP queue 1, "
-                    "item 12f)",
-}
-
-
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(f"{kind!r} is not ported yet: "
-                               f"{UNPORTED[kind]}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,10 +89,12 @@ def build_segments(cfg: ArchConfig) -> list[Segment]:
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config with a kind the port does
-    not run yet."""
-    if cfg.frontend != "tokens":
-        raise _unported(cfg.frontend)
+    """Raise ``ValueError`` for a config with a kind the reference does not
+    have either (every config of the registry passes)."""
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"unknown frontend {cfg.frontend!r}")
+    if cfg.remat not in REMAT:
+        raise ValueError(f"unknown remat mode {cfg.remat!r}")
     for seg in build_segments(cfg):
         for mixer, mlp in seg.pattern:
             if mixer not in MIXERS or mlp not in MLPS:
@@ -135,8 +133,10 @@ def init_params(cfg: ArchConfig, seed: int, device: torch.device) -> dict:
     on ``device``."""
     check_ported(cfg)
     col = ParamInit(seed, device, cfg.param_dtype)
-    params: dict[str, Any] = {
-        "embed": col.param((cfg.vocab, cfg.d_model), "normal")}
+    params: dict[str, Any] = {}
+    if cfg.frontend == "frames":
+        params["in_proj"] = col.param((cfg.d_model, cfg.d_model), "scaled")
+    params["embed"] = col.param((cfg.vocab, cfg.d_model), "normal")
     for si, seg in enumerate(build_segments(cfg)):
         params[f"seg{si}"] = {
             f"blk{bi}": [_init_block(col, kind, seg.repeats, cfg)
@@ -235,6 +235,60 @@ def _apply_block(p, x, cfg, kind, *, pos_ids, cache, write_pos):
     return x + out, aux
 
 
+def _patch(x: torch.Tensor, pe: torch.Tensor) -> torch.Tensor:
+    """``x`` [B,S,d] with ``pe`` written over its corner ``[:Bp, :P]``,
+    the reference's ``dynamic_update_slice(x, pe, (0, 0, 0))``, which
+    refuses an update larger than ``x``."""
+    bp, p = pe.shape[:2]
+    if pe.dim() != 3 or bp > x.shape[0] or p > x.shape[1] \
+            or pe.shape[2] != x.shape[2]:
+        raise ValueError(f"patch embeddings {tuple(pe.shape)} do not fit "
+                         f"in the embeddings {tuple(x.shape)}")
+    head = torch.cat([pe, x[:bp, p:]], dim=1)
+    return torch.cat([head, x[bp:]], dim=0) if bp < x.shape[0] else head
+
+
+def saves_product(op, args) -> bool:
+    """Remat ``"dots"``'s rule: an ``mm`` or ``addmm``, or a ``bmm`` whose
+    batch extent is 1, which is how ``torch.einsum`` lowers a product
+    without batch dims (``"bsd,dhk->bshk"``). The counterpart of the
+    reference's ``dots_with_no_batch_dims_saveable``: the attention
+    scores, the MoE experts' products and every other product with a batch
+    dim are recomputed. A batched product whose batch dims all have extent
+    1 (batch 1 with one KV head) is saved too: the policy sees the
+    lowered op only."""
+    ops = torch.ops.aten
+    if op in (ops.mm.default, ops.addmm.default):
+        return True
+    return op is ops.bmm.default and args[0].shape[0] == 1
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if saves_product(op, args)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """``fn`` recomputed in the backward pass (the reference's ``_remat``,
+    ``src/repro/models/lm.py:207-214``). ``"full"`` saves only the layer's
+    inputs (``torch.utils.checkpoint``); ``"dots"`` also saves the
+    products that ``saves_product`` names, through selective
+    checkpointing. Either way the gradients are the same function; only
+    what is kept between the passes differs."""
+    if mode == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if mode == "full":
+        return lambda *a, **kw: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+    def contexts():
+        return create_selective_checkpoint_contexts(_dots_policy)
+    return lambda *a, **kw: checkpoint(fn, *a, use_reentrant=False,
+                                       context_fn=contexts, **kw)
+
+
 def _layer_view(entry: dict, r: int) -> dict:
     """Layer ``r``'s views of a stacked cache entry, nested entries
     included."""
@@ -256,28 +310,51 @@ class Model:
         return init_params(self.cfg, seed, resolve_device(device))
 
     def _run_segments(self, params, x, *, pos_ids, cache, write_pos):
-        """-> (x, the summed aux loss in float32)."""
+        """-> (x, the summed aux loss in float32). A forward without a
+        cache recomputes each layer under ``cfg.remat`` when a gradient is
+        taken (the reference checkpoints each segment body: one layer, or
+        one pattern of Griffin's)."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        cfg = self.cfg
         for si, seg in enumerate(self.segments):
             for r in range(seg.repeats):
-                for bi, kind in enumerate(seg.pattern):
-                    cb = (None if cache is None else
-                          _layer_view(cache[f"seg{si}"][f"blk{bi}"], r))
-                    x, aux = _apply_block(
-                        params[f"seg{si}"][f"blk{bi}"][r], x, self.cfg,
-                        kind, pos_ids=pos_ids, cache=cb, write_pos=write_pos)
-                    if aux is not None:
-                        aux_total = aux_total + aux
+                cbs = [None if cache is None else
+                       _layer_view(cache[f"seg{si}"][f"blk{bi}"], r)
+                       for bi in range(len(seg.pattern))]
+
+                def body(x, ps, _seg=seg, _cbs=cbs):
+                    auxes = []
+                    for bi, kind in enumerate(_seg.pattern):
+                        x, aux = _apply_block(
+                            ps[bi], x, cfg, kind, pos_ids=pos_ids,
+                            cache=_cbs[bi], write_pos=write_pos)
+                        if aux is not None:
+                            auxes.append(aux)
+                    return x, auxes
+
+                ps = [params[f"seg{si}"][f"blk{bi}"][r]
+                      for bi in range(len(seg.pattern))]
+                if cache is None and taking_grad(x, ps):
+                    body = _remat(body, cfg.remat)
+                x, auxes = body(x, ps)
+                for aux in auxes:
+                    aux_total = aux_total + aux
         return x, aux_total
 
     def forward(self, params, batch: dict) -> tuple[torch.Tensor,
                                                     torch.Tensor]:
-        """-> (final hidden [B,S,d] in cfg.dtype, aux loss)."""
-        if "patch_embeds" in batch:
-            raise _unported("patch_embeds")
+        """-> (final hidden [B,S,d] in cfg.dtype, aux loss). ``batch``
+        holds ``"tokens"`` [B,S] (``"patch_embeds"`` [B,P,d] replacing the
+        first P positions' embeddings), or ``"frames"`` [B,S,d] for a
+        ``frames`` config (``src/repro/models/lm.py:267-283``)."""
         dtype = torch_dtype(self.cfg.dtype)
-        tokens = batch["tokens"]
-        x = params["embed"][tokens.long()].to(dtype)
+        if self.cfg.frontend == "frames":
+            x = torch.matmul(batch["frames"].to(dtype),
+                             params["in_proj"].to(dtype))
+        else:
+            x = params["embed"][batch["tokens"].long()].to(dtype)
+            if "patch_embeds" in batch:
+                x = _patch(x, batch["patch_embeds"].to(dtype))
         b, s = x.shape[:2]
         pos_ids = _pos_ids(self.cfg, b, s, 0, x.device)
         x, aux = self._run_segments(params, x, pos_ids=pos_ids, cache=None,

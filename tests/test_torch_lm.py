@@ -23,8 +23,8 @@ round at other places, every element within 5e-2 of the tensor's largest
 magnitude (an element near zero that is a sum of large bfloat16 terms
 carries their rounding, so an elementwise rtol would not hold). Also: the
 layers one by one, ``init_cache`` shapes (with ``kv_replicate_to``), the
-init rule, the carried MoE parameters' layout, and the kinds not ported
-yet. The ring buffer past its wrap point, as in
+init rule, the carried MoE parameters' layout, and hubert's frames and
+qwen2-vl's patch embeddings running. The ring buffer past its wrap point, as in
 ``tests/test_models.py::test_griffin_ring_buffer_wraparound``, is held to
 the reference's decode and, in float32, to the windowed prefill.
 """
@@ -49,7 +49,6 @@ from repro_torch.convert import lm_params_from_arrays
 from repro_torch.layers import mlp, norms, rope
 from repro_torch.models import Model, init_cache
 from repro_torch.models.init import ParamInit
-from repro_torch.models.lm import UNPORTED
 from repro_torch.models.steps import make_prefill_step, make_serve_step
 
 CPU = torch.device("cpu")
@@ -361,20 +360,32 @@ def test_param_init_rejects_unknown_rule():
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
                                   if a not in DENSE + MOE + RECURRENT])
 def test_unported_kinds_raise(arch):
+    """The configs outside the families above (hubert's frames frontend)
+    now run: the model, its cache and a forward on frames; only a kind the
+    reference lacks raises."""
     cfg = get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        Model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        init_cache(cfg, 1, 8, device="cpu")
+    tm = Model(cfg)
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    assert cache["seg0"]["blk0"]["k"].shape[:3] == (cfg.n_layers, 1, 8)
+    params = tm.init(0, device="cpu")
+    x, _ = tm.forward(params, {"frames": torch.ones(1, 4, cfg.d_model)})
+    assert tuple(x.shape) == (1, 4, cfg.d_model)
+    with pytest.raises(ValueError, match="frontend"):
+        Model(dataclasses.replace(cfg, frontend="pixels"))
 
 
 def test_patch_embeds_raise():
+    """Patch embeddings replace the first positions' token embeddings (held
+    to the reference in ``tests/test_torch_frontends.py``); only ones that
+    do not fit raise, as the reference's ``dynamic_update_slice``."""
     tm = Model(get_smoke("qwen2-vl-2b"))
     params = tm.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="patch"):
+    x, _ = tm.forward(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32),
+                               "patch_embeds": torch.zeros(1, 2, 64)})
+    assert tuple(x.shape) == (1, 4, 64)
+    with pytest.raises(ValueError, match="patch"):
         tm.forward(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                            "patch_embeds": torch.zeros(1, 2, 64)})
-    assert set(UNPORTED) == {"frames", "patch_embeds"}
+                            "patch_embeds": torch.zeros(1, 6, 64)})
 
 
 def test_model_init_defaults_to_the_card(monkeypatch):
