@@ -89,6 +89,18 @@ card, then drives the port's three paths:
   on the Hopper kernel (the first and last replayed through the plain
   version, K5 timed at that shape beside SDPA), the same float32 check and
   the engine;
+* a model over a device mesh (``lm_parallel``, on the qwen2-moe
+  parameters that ``lm_moe`` drew): a one-rank NCCL process group and
+  ``make_local_mesh``'s (1, 1) mesh, a 4,096-token bf16 prefill through
+  the production ``moe_impl="shard_map"`` (the expert-parallel MoE: one K5
+  launch and one expert-parallel all-reduce a layer, both counted; the
+  first and last K5 launches replayed through the plain version, K5 timed
+  at that shape beside SDPA) held to the gspmd prefill of the same tokens
+  and timed beside it in turns, the all-reduces' device time;
+  ``loss_and_grad`` of a two-layer cut in float32 through both paths,
+  every leaf held; the full tree laid out by ``tree_shardings`` under
+  FSDP's rule; a two-layer checkpoint saved and ``restore_sharded`` onto
+  the mesh, bit for bit;
 * the recurrent families (``lm_recurrent``): rwkv6 at full width and
   depth, a 32,768-token bf16 prefill (the chunked WKV, no K5), the float32
   check of prefill against decode at full depth and the ``ServeEngine``
@@ -133,6 +145,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -4034,17 +4047,18 @@ def lm_moe_qwen(device, seed: int, cfg, seq: int, prompt: int,
     out["serve"] = serve_aligned(device, seed,
                                  Model(with_production(cfg, MOE_QWEN)), params,
                                  prompt, max_new)
-    return out
+    return out, cfg, params
 
 
 def phase_lm_moe(device, seed: int, deepseek_cfg=None, qwen_cfg=None,
                  deepseek_seq: int = DEEPSEEK_PREFILL_SEQ,
                  qwen_seq: int = LM_PREFILL_SEQ, prompt: int = 64,
-                 max_new: int = 32) -> dict:
+                 max_new: int = 32) -> tuple:
     """The MoE family at full width, one model after the other (the first
     freed before the second is drawn): deepseek-v2 cut to
     ``DEEPSEEK_LAYERS`` layers, qwen2-moe at its full depth if the card
-    holds it."""
+    holds it. -> (the record, qwen2-moe's config and parameters, which the
+    ``lm_parallel`` phase takes over)."""
     import torch
     from repro_torch.configs import get_config
     deepseek_cfg = deepseek_cfg or dataclasses.replace(
@@ -4055,12 +4069,235 @@ def phase_lm_moe(device, seed: int, deepseek_cfg=None, qwen_cfg=None,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    qw = lm_moe_qwen(device, seed, qwen_cfg, qwen_seq, prompt, max_new)
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    qw, cfg, params = lm_moe_qwen(device, seed, qwen_cfg, qwen_seq, prompt,
+                                  max_new)
     out = {"deepseek_v2": ds, "qwen2_moe": qw}
     emit("lm_moe", **out)
+    return out, cfg, params
+
+
+# ------------------------------------------------------ over a mesh ----
+
+PARALLEL_PREFILL_SEQ = 4096
+PARALLEL_ROWS = 256            # logit rows compared: every 16th position
+PARALLEL_TOL = 1e-6            # one rank: the same function, op for op
+PARALLEL_GRAD_LAYERS = 2
+PARALLEL_GRAD_SEQ = 512
+PARALLEL_GRAD_TOL = 1e-5       # float32; the gathers' backward adds by atomics
+
+
+def start_process_group(backend: str, device) -> str:
+    """A one-rank process group over a file store in a new temporary
+    directory (returned; the caller removes it)."""
+    import tempfile
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group(
+        backend, init_method=f"file://{tmp}/store", rank=0, world_size=1,
+        **({"device_id": device} if device.type == "cuda" else {}))
+    return tmp
+
+
+def grad_agreement(want: list, got: list) -> dict:
+    """Per leaf: the largest |difference| over the leaf's largest |value|;
+    the worst leaf."""
+    rel = [float((w - g).abs().max() / w.abs().max().clamp_min(1e-30))
+           for w, g in zip(want, got)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    return dict(leaves=len(rel), max_rel_err=rel[worst], worst_leaf=worst,
+                tol=PARALLEL_GRAD_TOL)
+
+
+def phase_lm_parallel(device, seed: int, cfg, params, card: str,
+                      seq: int = PARALLEL_PREFILL_SEQ,
+                      grad_seq: int = PARALLEL_GRAD_SEQ) -> dict:
+    """qwen2-moe over a device mesh, on ``params`` (``lm_moe``'s): a
+    one-rank process group (NCCL on the card) and ``make_local_mesh``'s
+    (1, 1) mesh; the production ``moe_impl="shard_map"`` under it runs the
+    expert-parallel MoE. The main path: a bf16 prefill of ``seq`` tokens,
+    K5's and the expert-parallel all-reduce's counts at 0 just before and
+    read just after (one of each a layer, K5 on the Hopper kernel), its
+    first and last K5 launches replayed through the plain version and K5
+    timed at the last one's inputs beside its plain version and SDPA; the
+    gspmd prefill of the same tokens beside it, and both forwards' logits
+    at ``PARALLEL_ROWS`` positions held together (``PARALLEL_TOL``: with
+    one rank the two compute the same function op for op); ``loss_and_grad``
+    of ``PARALLEL_GRAD_LAYERS`` layers in float32 through both paths, every
+    leaf within ``PARALLEL_GRAD_TOL``; ``tree_shardings`` of the full tree
+    under FSDP's rule on the mesh and on the production (16, 16) shape; a
+    two-layer checkpoint saved and ``restore_sharded`` onto the mesh, equal
+    bit for bit."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.registry import with_production
+    from repro_torch.convert import lm_arrays_from_params, stacked_axes
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import make_local_mesh, production_mesh_shape
+    from repro_torch.layers import moe as M
+    from repro_torch.models import Model
+    from repro_torch.models.steps import loss_and_grad, make_prefill_step
+    from repro_torch.parallel import (LOGICAL_RULES, fsdp_rules,
+                                      set_mesh_rules, tree_shardings)
+    ep_cfg = with_production(cfg, MOE_QWEN)
+    check(ep_cfg.moe_impl == "shard_map", f"{MOE_QWEN}'s production "
+          f"moe_impl is {ep_cfg.moe_impl}")
+    gs_cfg = dataclasses.replace(ep_cfg, moe_impl="gspmd")
+    moe_layers = sum(cfg.layer_kind(i)[1] == "moe"
+                     for i in range(cfg.n_layers))
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    gc.collect()
+    if device.type == "cuda":       # lm_moe's prefill blocks, back first
+        torch.cuda.empty_cache()
+    pg_dir = start_process_group(backend, device)
+    try:
+        mesh = make_local_mesh(device.type)
+        gen = torch.Generator(device=device).manual_seed(seed + 12)
+        tokens = torch.randint(0, cfg.vocab, (1, seq), generator=gen,
+                               device=device)
+        batch = {"tokens": tokens}
+        ep_model, gs_model = Model(ep_cfg), Model(gs_cfg)
+        ep_step = make_prefill_step(ep_model)
+
+        def ep_prefill(p, b):
+            with set_mesh_rules(mesh):
+                return ep_step(p, b)
+        gs_prefill = make_prefill_step(gs_model)
+        ep_prefill(params, {"tokens": tokens[:, :256]})
+        gs_prefill(params, {"tokens": tokens[:, :256]})
+        # ---- the main path: the expert-parallel prefill, counted; its
+        # first and last K5 launches kept for the replay
+        last = cfg.n_layers - 1
+        with recorded_attention(keep={0, last}) as att:
+            FA.launches, M.ep_all_reduces = 0, 0
+            ep_logits, ep_s = timed(lambda: ep_prefill(params, batch),
+                                    device)
+            launches, reduces = FA.launches, M.ep_all_reduces
+        # ---- end of the main path
+        check(len(att.calls) == len({0, last}),
+              f"{len(att.calls)} K5 launches kept of {len(att.dtypes)}")
+        replays = [replay_k5_launch(call, "lm_parallel_replay")
+                   for call in att.calls]
+        _, q, k, v, kw, _ = att.calls[-1]
+        att.calls.clear()
+        times = k5_times(q, k, v, kw, device)
+        del q, k, v
+        gs_logits, gs_s = timed(lambda: gs_prefill(params, batch), device)
+        turns = {"ep": [], "gspmd": []}        # in turns, after both ran
+        for name in ("gspmd", "ep", "ep", "gspmd"):
+            fn = ep_prefill if name == "ep" else gs_prefill
+            turns[name].append(timed(lambda: fn(params, batch), device)[1])
+        # the device time of the expert-parallel body's all-reduces (y's
+        # and aux's batch mean, one of each a layer) in a prefill
+        collective = share_of_prefill(device, ep_prefill, params, tokens,
+                                      "moe", 2 * moe_layers, "_all_reduce",
+                                      "all_reduce")
+        check(tuple(ep_logits.shape) == (1, cfg.vocab)
+              and bool(torch.isfinite(ep_logits.float()).all()),
+              "expert-parallel prefill logits not finite or misshapen")
+        kernels = sorted({FA.KERNELS[dt] for dt in att.dtypes})
+        if device.type == "cuda":
+            check(launches == cfg.n_layers and kernels == [
+                "flash_attention_sm90"], f"K5: {launches} launches on "
+                f"{kernels} in a prefill of {cfg.n_layers} layers")
+        check(reduces == moe_layers, f"{reduces} expert-parallel "
+              f"all-reduces in a prefill of {moe_layers} MoE layers")
+        rows = torch.arange(seq // PARALLEL_ROWS - 1, seq,
+                            seq // PARALLEL_ROWS, device=device)
+        with set_mesh_rules(mesh):
+            x_ep, _ = ep_model.forward(params, batch)
+        x_gs, _ = gs_model.forward(params, batch)
+        hidden_equal = bool(torch.equal(x_ep, x_gs))
+        agree = logit_agreement(
+            gs_model.logits(params, x_gs[0, rows]).float(),
+            ep_model.logits(params, x_ep[0, rows]).float(), PARALLEL_TOL)
+        del x_ep, x_gs
+        check(agree["argmax_equal"] and agree["max_rel_err"] <= PARALLEL_TOL,
+              f"expert-parallel and gspmd prefills disagree: {agree}")
+
+        # float32 gradients of a two-layer cut through both paths
+        n = PARALLEL_GRAD_LAYERS
+        params2 = {**params, "seg0": {"blk0": params["seg0"]["blk0"][:n]}}
+        cut = dict(n_layers=n, dtype="float32")
+        g = torch.Generator(device=device).manual_seed(seed + 13)
+        gbatch = {k: torch.randint(0, cfg.vocab, (1, grad_seq), generator=g,
+                                   device=device)
+                  for k in ("tokens", "labels")}
+        ep_cut = Model(dataclasses.replace(ep_cfg, **cut))
+        gs_cut = Model(dataclasses.replace(gs_cfg, **cut))
+
+        def ep_grad():
+            with set_mesh_rules(mesh):
+                return loss_and_grad(ep_cut, params2, gbatch)
+        M.ep_all_reduces = 0
+        ep_loss, ep_grads = ep_grad()
+        grad_reduces = M.ep_all_reduces
+        gs_loss, gs_grads = loss_and_grad(gs_cut, params2, gbatch)
+        grads = grad_agreement(gs_grads, ep_grads)
+        del ep_grads, gs_grads
+        # timed once both have run (the first call of each builds and
+        # allocates), in turns
+        gs_grad_s = timed(lambda: loss_and_grad(gs_cut, params2, gbatch),
+                          device)[1]
+        ep_grad_s = timed(ep_grad, device)[1]
+        check(grads["max_rel_err"] <= PARALLEL_GRAD_TOL
+              and abs(float(ep_loss) - float(gs_loss))
+              <= PARALLEL_GRAD_TOL * abs(float(gs_loss)),
+              f"expert-parallel and gspmd gradients disagree: {grads}, "
+              f"losses {float(ep_loss)} {float(gs_loss)}")
+
+        # the full tree's placement, and the two-layer checkpoint restored
+        _, axes = Model(cfg).init_with_axes(device="meta")
+        rules = dict(LOGICAL_RULES, **fsdp_rules(False))
+        full = tree_shardings(params, axes, mesh, rules)
+        prod = tree_shardings(params, axes, production_mesh_shape(), rules)
+        per_rank = sum(math.prod(s.shard_shape(p.shape)) * p.element_size()
+                       for s, p in zip(_leaves(prod), _leaves(params)))
+        full = list(_leaves(full))
+        cfg2 = dataclasses.replace(cfg, n_layers=n)
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            state = lm_arrays_from_params(cfg2, params2)
+            mgr = CheckpointManager(ckpt_dir)
+            _, save_s = timed(lambda: mgr.save(0, state), device)
+            sh = tree_shardings(state, stacked_axes(axes), mesh, rules)
+            (step, restored), restore_s = timed(
+                lambda: mgr.restore_sharded(state, sh), device)
+            ckpt_bytes = sum(a.nbytes for a in _leaves(state))
+            same = all(r.device == device and torch.equal(
+                r, torch.from_numpy(a).to(device))
+                for r, a in zip(_leaves(restored), _leaves(state)))
+            del state, restored
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        check(step == 0 and same, "the restored checkpoint differs")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+    out = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, moe_layers=moe_layers,
+        mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), backend=backend,
+        seq=seq, card=card, k5_launches=launches, k5_kernels=kernels,
+        replayed_launches=[r["launch"] for r in replays],
+        **replay_summary(replays), **times,
+        ep_all_reduces=reduces, ep_prefill_s=ep_s, gspmd_prefill_s=gs_s,
+        turns_s=turns, ep_over_gspmd=sum(turns["ep"]) / sum(turns["gspmd"]),
+        **collective, logits=agree, hidden_equal=hidden_equal,
+        last_logits_equal=bool(torch.equal(ep_logits, gs_logits)),
+        grad=dict(layers=n, seq=grad_seq, dtype="float32",
+                  ep_all_reduces=grad_reduces, ep_s=ep_grad_s,
+                  gspmd_s=gs_grad_s, loss=float(ep_loss),
+                  gspmd_loss=float(gs_loss), **grads),
+        placement=dict(leaves=len(full),
+                       specs_nonempty=sum(bool(s.spec) for s in full),
+                       fsdp_bytes_per_rank_16x16=per_rank,
+                       bytes_whole=sum(p.numel() * p.element_size()
+                                       for p in _leaves(params))),
+        restore=dict(layers=n, bytes=ckpt_bytes, save_s=save_s,
+                     restore_s=restore_s, equal=same))
+    emit("lm_parallel", **out)
     return out
 
 
@@ -4660,8 +4897,14 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("lm_serve")
-    lm_moe = phase_lm_moe(device, args.seed)
+    lm_moe, qwen_cfg, qwen_params = phase_lm_moe(device, args.seed)
     lap("lm_moe")
+    par = phase_lm_parallel(device, args.seed, qwen_cfg, qwen_params,
+                            info["card"])
+    del qwen_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("lm_parallel")
     phase_lm_recurrent(device, args.seed)
     lap("lm_recurrent")
     frontends = phase_lm_frontends(device, args.seed)
@@ -4774,18 +5017,22 @@ def main(argv=None) -> int:
         "source": csrc + prefill["kernel"] + ".cu",
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": (prefill["launches"] + qwen["k5_launches"]
-                     + hubert["k5_launches"] + vl["k5_launches"]
-                     + train["k5_launches"]),
+                     + par["k5_launches"] + hubert["k5_launches"]
+                     + vl["k5_launches"] + train["k5_launches"]),
         "max_abs_err": max(attn["max_abs_err"], prefill["max_abs_err"],
-                           qwen["max_abs_err"], hubert["max_abs_err"],
+                           qwen["max_abs_err"], par["max_abs_err"],
+                           hubert["max_abs_err"],
                            vl["max_abs_err"], train["replay_max_abs_err"]),
         "ms": prefill["kernel_ms"], "plain_ms": prefill["plain_ms"],
         "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
         "library_ms": prefill["library_ms"], "matches_plain": True,
-        # qwen2-moe's prefill (lm_moe), hubert's encode at D 80 and
+        # qwen2-moe's prefill (lm_moe) and its expert-parallel prefill
+        # over the one-rank mesh (lm_parallel), hubert's encode at D 80 and
         # qwen2-vl's prefill (lm_frontends), qwen2-vl's training forward
         # and its recompute (lm_train): each its launches, at its shape
         "qwen2_moe": {k: qwen[k] for k in k5_keys},
+        "qwen2_moe_parallel": {k: par[k] for k in k5_keys + (
+            "seq", "ep_all_reduces", "ep_prefill_s", "gspmd_prefill_s")},
         "hubert": {k: hubert[k] for k in k5_keys},
         "qwen2_vl": {k: vl[k] for k in k5_keys},
         "train": {"k5_launches": train["k5_launches"],

@@ -7,9 +7,14 @@ so the training loop may overwrite them at once), then a background
 thread writes ``step_XXXXXXXX.ckpt`` (atomic rename in ``store``), updates
 the ``LATEST`` marker only after the file is in place, and keeps the
 newest ``keep`` checkpoints. ``restore_latest`` returns (step, state) as
-numpy arrays; ``restore_sharded`` places each leaf on the device its tree
-names. A crash mid-save leaves a ``.tmp`` file that nothing reads, and the
-previous checkpoint intact.
+numpy arrays. ``restore_sharded`` is the reference's elastic restore: it
+takes the *destination* layout, a tree of ``parallel.NamedSharding`` over
+any mesh, and gives this rank its block of every leaf
+(``parallel.shard_tree``). A file holds each leaf whole, whatever mesh
+saved it (the state is copied to the host whole, as the reference's
+``device_get`` copies it), so any file restores onto any mesh shape. A
+crash mid-save leaves a ``.tmp`` file that nothing reads, and the previous
+checkpoint intact.
 """
 from __future__ import annotations
 
@@ -31,16 +36,6 @@ def _host_tree(tree):
         return (type(tree)(*vals) if hasattr(tree, "_fields")
                 else type(tree)(vals))
     return to_host(tree) if isinstance(tree, torch.Tensor) else tree
-
-
-def _place(tree, devices):
-    if isinstance(tree, dict):
-        return {k: _place(v, devices[k]) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        vals = [_place(v, d) for v, d in zip(tree, devices)]
-        return (type(tree)(*vals) if hasattr(tree, "_fields")
-                else type(tree)(vals))
-    return torch.from_numpy(tree).to(devices)
 
 
 class CheckpointManager:
@@ -107,12 +102,14 @@ class CheckpointManager:
             step = steps[-1]
         return step, load_pytree(self._path(step), like)
 
-    def restore_sharded(self, like: Any, devices: Any
+    def restore_sharded(self, like: Any, shardings: Any, *, device=None
                         ) -> tuple[int, Any] | None:
-        """``restore_latest`` with each leaf placed on the device named at
-        its place in ``devices`` (a tree shaped like ``like``)."""
+        """Elastic restore: ``restore_latest`` with each leaf cut to the
+        block that its place in ``shardings`` (a tree shaped like ``like``)
+        gives this rank, on ``device`` (default: the meshes' device)."""
+        from ..parallel.sharding import shard_tree
         got = self.restore_latest(like)
         if got is None:
             return None
         step, host = got
-        return step, _place(host, devices)
+        return step, shard_tree(host, shardings, device=device)

@@ -148,6 +148,15 @@ def lm_arrays_from_params(cfg: ArchConfig, params: Mapping[str, Any]
     return out
 
 
+def stacked_axes(axes: Mapping[str, tuple]) -> dict[str, tuple]:
+    """The logical axes by path (``Model.init_with_axes``) of the
+    reference's layout, whose segment leaves carry the stacked layer dim
+    first (``None``): the reference's ``ParamCollector.axes``, for
+    ``parallel.tree_shardings`` over ``lm_arrays_from_params``' trees."""
+    return {k: ((None,) + tuple(v) if k.startswith("seg") else tuple(v))
+            for k, v in axes.items()}
+
+
 def train_state_to_arrays(cfg: ArchConfig, params, opt: AdamWState) -> dict:
     """``{"params": ..., "opt": AdamWState(step, m, v)}`` as numpy in the
     reference's layout: what its training launcher checkpoints, so the

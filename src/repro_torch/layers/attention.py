@@ -148,10 +148,14 @@ def init_gqa(col: "ParamInit", n: int, d_model: int, n_heads: int,
     """One layer's attention weights; ``n`` is its segment's layer count
     (the reference's stacked dimension, which scales the init)."""
     return {
-        "wq": col.param((d_model, n_heads, head_dim), "scaled", fan=n),
-        "wk": col.param((d_model, n_kv, head_dim), "scaled", fan=n),
-        "wv": col.param((d_model, n_kv, head_dim), "scaled", fan=n),
-        "wo": col.param((n_heads, head_dim, d_model), "scaled", fan=n),
+        "wq": col.param((d_model, n_heads, head_dim), "scaled", fan=n,
+                        axes=("embed", "heads", "head_dim")),
+        "wk": col.param((d_model, n_kv, head_dim), "scaled", fan=n,
+                        axes=("embed", "kv_heads", "head_dim")),
+        "wv": col.param((d_model, n_kv, head_dim), "scaled", fan=n,
+                        axes=("embed", "kv_heads", "head_dim")),
+        "wo": col.param((n_heads, head_dim, d_model), "scaled", fan=n,
+                        axes=("heads", "head_dim", "embed")),
     }
 
 

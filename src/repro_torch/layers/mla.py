@@ -36,19 +36,23 @@ def init_mla(col: "ParamInit", n: int, cfg) -> dict:
     qk = cfg.nope_head_dim + cfg.rope_head_dim
     p = {
         "wkv_a": col.param((d, cfg.kv_lora + cfg.rope_head_dim), "scaled",
-                           fan=n),
-        "kv_norm": col.param((cfg.kv_lora,), "ones"),
+                           fan=n, axes=("embed", "kv_lora")),
+        "kv_norm": col.param((cfg.kv_lora,), "ones", axes=("norm",)),
         "wkv_b": col.param((cfg.kv_lora, h,
                             cfg.nope_head_dim + cfg.v_head_dim), "scaled",
-                           fan=n),
-        "wo": col.param((h, cfg.v_head_dim, d), "scaled", fan=n),
+                           fan=n, axes=("kv_lora", "heads", "head_dim")),
+        "wo": col.param((h, cfg.v_head_dim, d), "scaled", fan=n,
+                        axes=("heads", "head_dim", "embed")),
     }
     if cfg.q_lora:
-        p["wq_a"] = col.param((d, cfg.q_lora), "scaled", fan=n)
-        p["q_norm"] = col.param((cfg.q_lora,), "ones")
-        p["wq_b"] = col.param((cfg.q_lora, h, qk), "scaled", fan=n)
+        p["wq_a"] = col.param((d, cfg.q_lora), "scaled", fan=n,
+                              axes=("embed", "q_lora"))
+        p["q_norm"] = col.param((cfg.q_lora,), "ones", axes=("norm",))
+        p["wq_b"] = col.param((cfg.q_lora, h, qk), "scaled", fan=n,
+                              axes=("q_lora", "heads", "head_dim"))
     else:
-        p["wq"] = col.param((d, h, qk), "scaled", fan=n)
+        p["wq"] = col.param((d, h, qk), "scaled", fan=n,
+                            axes=("embed", "heads", "head_dim"))
     return p
 
 

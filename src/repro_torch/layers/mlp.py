@@ -14,9 +14,12 @@ def init_mlp(col: ParamInit, n: int, d_model: int, d_ff: int) -> dict:
     """One layer's MLP weights; ``n`` is the layer count of its segment
     (the reference's stacked dimension, which scales the init)."""
     return {
-        "wi_gate": col.param((d_model, d_ff), "scaled", fan=n),
-        "wi_up": col.param((d_model, d_ff), "scaled", fan=n),
-        "wo": col.param((d_ff, d_model), "scaled", fan=n),
+        "wi_gate": col.param((d_model, d_ff), "scaled", fan=n,
+                             axes=("embed", "mlp")),
+        "wi_up": col.param((d_model, d_ff), "scaled", fan=n,
+                           axes=("embed", "mlp")),
+        "wo": col.param((d_ff, d_model), "scaled", fan=n,
+                        axes=("mlp", "embed")),
     }
 
 

@@ -12,12 +12,34 @@ as batched products, and each token adds its k contributions in slot order
 in ``cfg.dtype``: a fixed order, the reference's sequential scatter-add,
 where an ``index_add_`` on the card would add in the order its atomics land.
 
-``moe_impl="shard_map"`` (the production override) computes the same
-function here: the reference runs its expert-parallel body only under a
-mesh with a ``model`` axis, and the port has no mesh. That body
-(``_apply_moe_shard_map``) waits for ``parallel/sharding.py`` (ROADMAP queue
-1, item 12g). The expert counts are padded to a multiple of 16, as the
-reference pads them for its mesh (qwen2-moe's 60 -> 64).
+``moe_impl="shard_map"`` (the production override) under a mesh with a
+``model`` dim (``parallel.set_mesh_rules``) takes the expert-parallel body
+instead, the reference's ``_apply_moe_shard_map``. It runs on every rank of
+the mesh with that rank's blocks: ``x`` its batch slice (over ``pod`` and
+``data``), ``w_gate``/``w_up``/``w_down`` its ``E / n_model`` experts (dim
+0 over ``model``), the router and the shared MLP whole. Each rank routes
+its own tokens, with a capacity taken from its own token count, keeps only
+the pairs of its experts, runs them and combines locally; then exactly one
+all-reduce over the ``model`` group a layer (``ep_all_reduces`` counts
+them) sums each token's contributions. ``aux``'s expert means are averaged
+over the batch ranks. Which pairs drop is decided per rank, so with drops
+the result differs from the gspmd path's; its parity target is the
+reference's ``_apply_moe_shard_map``. With one rank it computes the gspmd
+path's function, op for op.
+
+Gradients: each ``model`` rank computes the same loss on the same summed
+``y``, so that all-reduce passes its gradient through unchanged
+(Megatron's forward all-reduce, backward identity), and the gradients that
+a rank's experts give ``x`` and the combine weights are summed over
+``model`` in the backward (forward identity, backward all-reduce). The
+router's gradient from ``aux`` is thus counted once, and the router, the
+shared MLP and ``x`` get the whole gradient on every ``model`` rank. Over
+the batch ranks the gradients of the router, the shared MLP and the
+experts are partial and sum to the whole (the data-parallel all-reduce is
+the caller's), with each rank's loss adding the replicated ``aux`` once:
+the batch mean of ``aux``'s terms divides its gradient by the batch ranks.
+The expert counts are padded to a multiple of 16, as the reference pads
+them for its mesh (qwen2-moe's 60 -> 64).
 """
 from __future__ import annotations
 
@@ -54,10 +76,13 @@ def init_moe(col: "ParamInit", n: int, cfg) -> dict:
     d, f = cfg.d_model, cfg.expert_dff
     e = padded_experts(cfg.n_experts)
     p = {
-        "router": col.param((d, e), "scaled", fan=n),
-        "w_gate": col.param((e, d, f), "scaled", fan=n),
-        "w_up": col.param((e, d, f), "scaled", fan=n),
-        "w_down": col.param((e, f, d), "scaled", fan=n),
+        "router": col.param((d, e), "scaled", fan=n, axes=("embed", None)),
+        "w_gate": col.param((e, d, f), "scaled", fan=n,
+                            axes=("expert", "embed", "expert_mlp")),
+        "w_up": col.param((e, d, f), "scaled", fan=n,
+                          axes=("expert", "embed", "expert_mlp")),
+        "w_down": col.param((e, f, d), "scaled", fan=n,
+                            axes=("expert", "expert_mlp", "embed")),
     }
     if cfg.n_shared:
         p["shared"] = init_mlp(col, n, d, cfg.shared_dff or cfg.expert_dff)
@@ -69,15 +94,21 @@ class Routing(NamedTuple):
     idx: torch.Tensor        # [T, k] int64, experts by descending logit
     weights: torch.Tensor    # [T, k] float32, softmax over the k gates
     pos: torch.Tensor        # [T, k] int64, place of the pair in its expert
-    keep: torch.Tensor       # [T, k] bool, pos < cap
+    keep: torch.Tensor       # [T, k] bool, pos < cap (and the expert local)
     cap: int
     aux: torch.Tensor        # () float32, the Switch load-balance loss
 
 
-def route(p: dict, x: torch.Tensor, cfg) -> Routing:
+def route(p: dict, x: torch.Tensor, cfg, *, experts: range | None = None,
+          batch_mean=None) -> Routing:
     """Top-k routing of x [..., d] (flattened to T tokens) as the
     reference's ``_apply_moe_gspmd`` routes. Equal logits go to the lower
-    expert, as ``jax.lax.top_k`` breaks ties (a stable descending sort)."""
+    expert, as ``jax.lax.top_k`` breaks ties (a stable descending sort).
+
+    ``experts`` (the expert-parallel body's local routing): only the pairs
+    of those experts are numbered, within their expert, and kept; the rest
+    get position 0 and ``keep`` False. ``batch_mean`` averages the aux
+    loss's two expert means ``[2, E]`` over the batch ranks."""
     e = p["router"].shape[-1]
     k = cfg.top_k
     xt = x.reshape(-1, x.shape[-1])
@@ -92,32 +123,39 @@ def route(p: dict, x: torch.Tensor, cfg) -> Routing:
     weights = torch.softmax(gates, dim=-1)
 
     probs = torch.softmax(logits, dim=-1)
-    me = probs.mean(dim=0)
-    ce = F.one_hot(idx[:, 0], e).float().mean(dim=0)
-    aux = (me * ce).sum() * float(e)
+    means = torch.stack([probs.mean(dim=0),
+                         F.one_hot(idx[:, 0], e).float().mean(dim=0)])
+    if batch_mean is not None:
+        means = batch_mean(means)
+    aux = (means[0] * means[1]).sum() * float(e)
 
-    flat = F.one_hot(idx.reshape(-1), e)               # [T*k, E], token-major
-    pos = ((flat.cumsum(dim=0) - flat) * flat).sum(dim=-1).reshape(t, k)
-    return Routing(idx, weights, pos, pos < cap, cap, aux)
+    eid = idx.reshape(-1)                    # token-major pairs
+    if experts is None:
+        flat = F.one_hot(eid, e)
+    else:
+        mine = (eid >= experts.start) & (eid < experts.stop)
+        flat = (F.one_hot(torch.where(mine, eid - experts.start, 0),
+                          len(experts)) * mine[:, None])
+    pos = ((flat.cumsum(dim=0) - flat) * flat).sum(dim=-1)
+    keep = pos < cap if experts is None else mine & (pos < cap)
+    return Routing(idx, weights, pos.reshape(t, k), keep.reshape(t, k), cap,
+                   aux)
 
 
-def apply_moe(p: dict, x: torch.Tensor, cfg
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B,S,d] -> (y [B,S,d], aux loss): the reference's
-    ``_apply_moe_gspmd``."""
-    dtype = x.dtype
-    b, s, d = x.shape
-    t, k = b * s, cfg.top_k
-    e = p["router"].shape[-1]
-    r = route(p, x, cfg)
-    xt = x.reshape(t, d)
-    eid = r.idx.reshape(-1)
+def _experts(p: dict, xt: torch.Tensor, eid: torch.Tensor, r: Routing,
+             weights: torch.Tensor) -> torch.Tensor:
+    """The kept pairs of ``r`` through the experts of ``p`` (``eid``: each
+    pair's expert among them), combined: [T, d] in ``xt``'s dtype."""
+    dtype = xt.dtype
+    t, d = xt.shape
+    k = r.idx.shape[1]
     pid = torch.where(r.keep, r.pos, r.cap - 1).reshape(-1)
-    tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    wk = torch.where(r.keep, r.weights, 0.0)
+    tok = torch.arange(t, device=xt.device).repeat_interleave(k)
+    wk = torch.where(r.keep, weights, 0.0)
 
     # kept pairs are unique (expert, slot); a dropped pair adds exact zeros
-    buf = torch.zeros((e, r.cap, d), dtype=dtype, device=x.device)
+    buf = torch.zeros((p["w_gate"].shape[0], r.cap, d), dtype=dtype,
+                      device=xt.device)
     buf.index_put_((eid, pid),
                    xt[tok] * r.keep.reshape(-1, 1).to(dtype),
                    accumulate=True)
@@ -130,7 +168,117 @@ def apply_moe(p: dict, x: torch.Tensor, cfg
     y = contrib[:, 0]
     for j in range(1, k):                    # slot order, in cfg.dtype
         y = y + contrib[:, j]
+    return y
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B,S,d] -> (y [B,S,d], aux loss): the reference's
+    ``_apply_moe_gspmd``, or its ``_apply_moe_shard_map`` for
+    ``moe_impl="shard_map"`` under a mesh with a ``model`` dim."""
+    if cfg.moe_impl == "shard_map":
+        from ..parallel.sharding import current, mesh_dims
+        mesh, _ = current()
+        if mesh is not None and "model" in mesh_dims(mesh):
+            return _apply_moe_expert_parallel(p, x, cfg, mesh)
+    b, s, d = x.shape
+    r = route(p, x, cfg)
+    y = _experts(p, x.reshape(b * s, d), r.idx.reshape(-1), r, r.weights)
     y = y.reshape(b, s, d)
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], x, "swiglu")
+    return y, r.aux
+
+
+# ------------------------------------------------------ expert parallel ----
+
+ep_all_reduces = 0       # the expert-parallel body's forward all-reduces
+
+
+def _all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
+    import torch.distributed as dist
+    out = t.clone()
+    for g in groups:
+        dist.all_reduce(out, group=g)
+    return out
+
+
+class _SumForward(torch.autograd.Function):
+    """Forward: the sum over ``group`` (the one counted all-reduce);
+    backward: the gradient as it is (every rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        global ep_all_reduces
+        ep_all_reduces += 1
+        return _all_reduce(t, (group,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Forward: ``t`` as it is; backward: the gradient summed over
+    ``group`` (each rank's experts give part of it)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), (ctx.group,)), None
+
+
+class _BatchMean(torch.autograd.Function):
+    """Forward: the mean over the batch ranks (``groups``, ``n`` ranks in
+    all); backward: the gradient over ``n``, the share of one rank's loss in
+    the replicated value's once-counted gradient."""
+
+    @staticmethod
+    def forward(ctx, t, groups, n):
+        ctx.n = n
+        return _all_reduce(t, groups) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def _apply_moe_expert_parallel(p: dict, x: torch.Tensor, cfg, mesh
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``src/repro/layers/moe.py:122`` on this rank's blocks (see the
+    module docstring): x [B_loc,S,d] -> (y [B_loc,S,d], aux)."""
+    from ..parallel.sharding import MeshShape, mesh_dims
+    if isinstance(mesh, MeshShape):
+        raise TypeError("the expert-parallel MoE runs over a DeviceMesh, "
+                        "not a MeshShape")
+    dims = mesh_dims(mesh)
+    e = p["router"].shape[-1]
+    e_loc = p["w_gate"].shape[0]
+    if e_loc * dims["model"] != e:
+        raise ValueError(f"{e_loc} local experts on {dims['model']} model "
+                         f"ranks for a router over {e}")
+    if (p["router"].shape[0] != x.shape[-1]
+            or p["w_gate"].shape[1:] != (x.shape[-1], cfg.expert_dff)):
+        raise ValueError("the MoE's weights are split on a dim other than "
+                         "expert: place them with expert_parallel_rules")
+    base = mesh.get_local_rank("model") * e_loc
+    batch = [a for a in ("pod", "data") if a in dims]
+    n_batch = math.prod(dims[a] for a in batch)
+    model_group = mesh.get_group("model")
+    b, s, d = x.shape
+    r = route(p, x, cfg, experts=range(base, base + e_loc),
+              batch_mean=lambda m: _BatchMean.apply(
+                  m, [mesh.get_group(a) for a in batch], n_batch))
+    xt = _SumBackward.apply(x.reshape(b * s, d), model_group)
+    weights = _SumBackward.apply(r.weights, model_group)
+    mine = (r.idx >= base) & (r.idx < base + e_loc)
+    eid = torch.where(mine, r.idx - base, 0).reshape(-1)
+    y = _experts(p, xt, eid, r, weights)
+    y = _SumForward.apply(y, model_group).reshape(b, s, d)
     if "shared" in p:
         y = y + apply_mlp(p["shared"], x, "swiglu")
     return y, r.aux

@@ -29,16 +29,17 @@ def init_rglru(col: "ParamInit", n: int, cfg) -> dict:
     scales the init)."""
     d, w = cfg.d_model, cfg.rnn_width
     return {
-        "wx": col.param((d, w), "scaled", fan=n),
-        "wgate": col.param((d, w), "scaled", fan=n),
-        "conv_w": col.param((cfg.conv_width, w), "normal"),
-        "conv_b": col.param((w,), "zeros"),
-        "lam": col.param((w,), "ones"),
-        "wa": col.param((w, w), "scaled", fan=n),
-        "ba": col.param((w,), "zeros"),
-        "wi": col.param((w, w), "scaled", fan=n),
-        "bi": col.param((w,), "zeros"),
-        "wo": col.param((w, d), "scaled", fan=n),
+        "wx": col.param((d, w), "scaled", fan=n, axes=("embed", "rnn")),
+        "wgate": col.param((d, w), "scaled", fan=n, axes=("embed", "rnn")),
+        "conv_w": col.param((cfg.conv_width, w), "normal",
+                            axes=("conv", "rnn")),
+        "conv_b": col.param((w,), "zeros", axes=("rnn",)),
+        "lam": col.param((w,), "ones", axes=("rnn",)),
+        "wa": col.param((w, w), "scaled", fan=n, axes=("rnn", None)),
+        "ba": col.param((w,), "zeros", axes=("rnn",)),
+        "wi": col.param((w, w), "scaled", fan=n, axes=("rnn", None)),
+        "bi": col.param((w,), "zeros", axes=("rnn",)),
+        "wo": col.param((w, d), "scaled", fan=n, axes=("rnn", "embed")),
     }
 
 

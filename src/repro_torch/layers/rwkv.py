@@ -45,18 +45,18 @@ def init_rwkv_time(col: "ParamInit", n: int, cfg) -> dict:
     hs = cfg.rwkv_head_size
     h = d // hs
     return {
-        "mu": col.param((5, d), "normal"),
-        "wr": col.param((d, d), "scaled", fan=n),
-        "wk": col.param((d, d), "scaled", fan=n),
-        "wv": col.param((d, d), "scaled", fan=n),
-        "wg": col.param((d, d), "scaled", fan=n),
-        "w0": col.param((d,), "normal"),
-        "wa": col.param((d, LORA), "scaled", fan=n),
-        "wb": col.param((LORA, d), "scaled", fan=n),
-        "u": col.param((h, hs), "normal"),
-        "gn_w": col.param((d,), "ones"),
-        "gn_b": col.param((d,), "zeros"),
-        "wo": col.param((d, d), "scaled", fan=n),
+        "mu": col.param((5, d), "normal", axes=(None, "embed")),
+        "wr": col.param((d, d), "scaled", fan=n, axes=("embed", "heads")),
+        "wk": col.param((d, d), "scaled", fan=n, axes=("embed", "heads")),
+        "wv": col.param((d, d), "scaled", fan=n, axes=("embed", "heads")),
+        "wg": col.param((d, d), "scaled", fan=n, axes=("embed", "heads")),
+        "w0": col.param((d,), "normal", axes=("embed",)),
+        "wa": col.param((d, LORA), "scaled", fan=n, axes=("embed", "lora")),
+        "wb": col.param((LORA, d), "scaled", fan=n, axes=("lora", "embed")),
+        "u": col.param((h, hs), "normal", axes=("heads", "head_dim")),
+        "gn_w": col.param((d,), "ones", axes=("norm",)),
+        "gn_b": col.param((d,), "zeros", axes=("norm",)),
+        "wo": col.param((d, d), "scaled", fan=n, axes=("heads", "embed")),
     }
 
 
@@ -151,10 +151,10 @@ def init_rwkv_channel(col: "ParamInit", n: int, cfg) -> dict:
     176``)."""
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mu": col.param((2, d), "normal"),
-        "wk": col.param((d, f), "scaled", fan=n),
-        "wv": col.param((f, d), "scaled", fan=n),
-        "wr": col.param((d, d), "scaled", fan=n),
+        "mu": col.param((2, d), "normal", axes=(None, "embed")),
+        "wk": col.param((d, f), "scaled", fan=n, axes=("embed", "mlp")),
+        "wv": col.param((f, d), "scaled", fan=n, axes=("mlp", "embed")),
+        "wr": col.param((d, d), "scaled", fan=n, axes=("embed", "heads")),
     }
 
 

@@ -10,6 +10,13 @@ device.
 
 Draws are float32, then cast to the parameter dtype. The numbers differ
 from ``jax.random``'s; the shapes and the distribution are the reference's.
+
+Each ``param`` call names its logical axes (``axes=``, copied from the
+reference's init site without the stacked-layer ``None``: the port keeps
+one dict a layer), and ``axes_of(tree)`` gives them by tree path, the
+reference's ``ParamCollector.axes``, for ``parallel.tree_shardings``. On
+``torch.device("meta")`` nothing is drawn or allocated (the reference's
+``abstract=True``), so a full-size tree can be laid out on any host.
 """
 from __future__ import annotations
 
@@ -31,29 +38,65 @@ def torch_dtype(name: str) -> torch.dtype:
 
 class ParamInit:
     """Draws parameters in call order from one seeded generator on
-    ``device`` (so a full-size model is drawn on the card, not the host)."""
+    ``device`` (so a full-size model is drawn on the card, not the host),
+    and records each one's logical axes."""
 
     def __init__(self, seed: int, device: torch.device,
                  param_dtype: str = "float32"):
-        self.device = device
+        self.device = torch.device(device)
         self.dtype = torch_dtype(param_dtype)
-        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.generator = (None if self.device.type == "meta" else
+                          torch.Generator(device=device).manual_seed(seed))
+        self._axes: dict[int, tuple] = {}     # id -> (tensor, axes)
 
     def param(self, shape: tuple[int, ...], init: str = "normal", *,
+              axes: tuple[str | None, ...] | None = None,
               fan: int | None = None) -> torch.Tensor:
-        """One parameter of ``shape``; ``fan`` is the reference's
-        ``shape[0]`` for ``"scaled"`` (default: this shape's own)."""
+        """One parameter of ``shape`` whose dims carry the logical ``axes``
+        (none recorded: replicated); ``fan`` is the reference's ``shape[0]``
+        for ``"scaled"`` (default: this shape's own)."""
+        if axes is not None and len(axes) != len(shape):
+            raise ValueError(f"axes {axes} for shape {shape}")
+        t = self._draw(shape, init, fan)
+        if axes is not None:
+            self._axes[id(t)] = (t, tuple(axes))
+        return t
+
+    def axes_of(self, tree) -> dict[str, tuple]:
+        """{path: axes} of the parameters of ``tree`` drawn here: dict keys
+        joined by ``/``; a segment's layers (list items) share one path,
+        so they must record the same axes."""
+        out: dict[str, tuple] = {}
+
+        def walk(t, prefix):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, f"{prefix}/{k}" if prefix else k)
+            elif isinstance(t, list):
+                for v in t:
+                    walk(v, prefix)
+            elif id(t) in self._axes:
+                ax = self._axes[id(t)][1]
+                if out.setdefault(prefix, ax) != ax:
+                    raise ValueError(f"{prefix}: layers record {ax} and "
+                                     f"{out[prefix]}")
+        walk(tree, "")
+        return out
+
+    def _draw(self, shape, init, fan) -> torch.Tensor:
+        if init not in ("zeros", "ones", "normal", "scaled"):
+            raise ValueError(f"unknown init {init!r}")
+        if self.generator is None:
+            return torch.empty(shape, dtype=self.dtype, device=self.device)
         if init == "zeros":
             return torch.zeros(shape, dtype=self.dtype, device=self.device)
         if init == "ones":
             return torch.ones(shape, dtype=self.dtype, device=self.device)
         if init == "normal":
             scale = INIT_SCALE
-        elif init == "scaled":
+        else:
             scale = 1.0 / math.sqrt(max(fan if fan is not None else shape[0],
                                         1))
-        else:
-            raise ValueError(f"unknown init {init!r}")
         t = torch.randn(shape, generator=self.generator, dtype=torch.float32,
                         device=self.device)
         return t.mul_(scale).to(self.dtype)

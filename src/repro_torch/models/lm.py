@@ -107,7 +107,7 @@ def _init_block(col: ParamInit, kind: tuple[str, str], n: int,
                 cfg: ArchConfig) -> dict:
     mixer, mlpk = kind
     d = cfg.d_model
-    p: dict[str, Any] = {"ln1": col.param((d,), "ones")}
+    p: dict[str, Any] = {"ln1": col.param((d,), "ones", axes=("norm",))}
     if mixer == "mla":
         p["mixer"] = init_mla(col, n, cfg)
     elif mixer == "rwkv":
@@ -118,7 +118,7 @@ def _init_block(col: ParamInit, kind: tuple[str, str], n: int,
         p["mixer"] = init_gqa(col, n, d, cfg.n_heads, cfg.n_kv_heads,
                               cfg.resolved_head_dim)
     if not cfg.parallel_block:
-        p["ln2"] = col.param((d,), "ones")
+        p["ln2"] = col.param((d,), "ones", axes=("norm",))
     if mlpk == "moe":
         p["mlp"] = init_moe(col, n, cfg)
     elif mlpk == "rwkv_cm":
@@ -128,24 +128,28 @@ def _init_block(col: ParamInit, kind: tuple[str, str], n: int,
     return p
 
 
-def init_params(cfg: ArchConfig, seed: int, device: torch.device) -> dict:
-    """Random parameters by the reference's rule (``models.init``), drawn
-    on ``device``."""
+def init_params(cfg: ArchConfig, seed: int, device: torch.device
+                ) -> tuple[dict, dict[str, tuple]]:
+    """(random parameters by the reference's rule (``models.init``), drawn
+    on ``device``; their logical axes by path, ``ParamInit.axes_of``)."""
     check_ported(cfg)
     col = ParamInit(seed, device, cfg.param_dtype)
     params: dict[str, Any] = {}
     if cfg.frontend == "frames":
-        params["in_proj"] = col.param((cfg.d_model, cfg.d_model), "scaled")
-    params["embed"] = col.param((cfg.vocab, cfg.d_model), "normal")
+        params["in_proj"] = col.param((cfg.d_model, cfg.d_model), "scaled",
+                                      axes=("embed", None))
+    params["embed"] = col.param((cfg.vocab, cfg.d_model), "normal",
+                                axes=("vocab", "embed"))
     for si, seg in enumerate(build_segments(cfg)):
         params[f"seg{si}"] = {
             f"blk{bi}": [_init_block(col, kind, seg.repeats, cfg)
                          for _ in range(seg.repeats)]
             for bi, kind in enumerate(seg.pattern)}
-    params["final_norm"] = col.param((cfg.d_model,), "ones")
+    params["final_norm"] = col.param((cfg.d_model,), "ones", axes=("norm",))
     if not cfg.tie_embeddings:
-        params["lm_head"] = col.param((cfg.d_model, cfg.vocab), "normal")
-    return params
+        params["lm_head"] = col.param((cfg.d_model, cfg.vocab), "normal",
+                                      axes=("embed", "vocab"))
+    return params, col.axes_of(params)
 
 
 # --------------------------------------------------------------- apply ----
@@ -306,8 +310,17 @@ class Model:
         self.segments = build_segments(cfg)
 
     def init(self, seed: int = 0, *, device=None) -> dict:
-        """Random parameters on ``device`` (default: the CUDA card)."""
-        return init_params(self.cfg, seed, resolve_device(device))
+        """Random parameters on ``device`` (default: the CUDA card); on
+        ``"meta"`` their shapes alone, allocating nothing."""
+        return self.init_with_axes(seed, device=device)[0]
+
+    def init_with_axes(self, seed: int = 0, *, device=None
+                       ) -> tuple[dict, dict[str, tuple]]:
+        """(``init``'s parameters, their logical axes by path: the
+        reference's ``Model.init`` pair, for ``parallel.tree_shardings``)."""
+        dev = (torch.device("meta") if str(device) == "meta"
+               else resolve_device(device))
+        return init_params(self.cfg, seed, dev)
 
     def _run_segments(self, params, x, *, pos_ids, cache, write_pos):
         """-> (x, the summed aux loss in float32). A forward without a

@@ -136,13 +136,17 @@ def test_manager_retention_resume_and_crash_safety():
 
 
 def test_elastic_restore_device_put():
-    """``restore_sharded`` places each leaf on the device its tree names
-    (one device here; the reference's test uses a 1 x 1 mesh)."""
+    """``restore_sharded`` places each leaf by its destination sharding
+    (a 1 x 1 mesh, as the reference's test; several ranks in
+    ``tests/test_torch_parallel.py``)."""
+    from repro_torch.launch.mesh import local_mesh_shape
+    from repro_torch.parallel import NamedSharding
     with tempfile.TemporaryDirectory() as td:
         mgr = CheckpointManager(td, keep=1, every=1)
         state = {"w": np.arange(8, dtype=np.float32)}
         mgr.save(0, state)
-        step, placed = mgr.restore_sharded(state,
-                                           {"w": torch.device("cpu")})
+        step, placed = mgr.restore_sharded(
+            state, {"w": NamedSharding(local_mesh_shape(1), ("data",))},
+            device="cpu")
         assert step == 0 and placed["w"].device == torch.device("cpu")
         assert np.array_equal(placed["w"].numpy(), state["w"])
