@@ -119,6 +119,19 @@ card, then drives the port's three paths:
   plain version; qwen2-vl-2b at full width and depth, a 32,768-token
   prefill with 256 patch embeddings (one K5 launch a layer), the float32
   prefill-against-decode check and the engine;
+* the production layout: minitron-4b's 32,768-token prefill
+  (``lm_layout_prefill``, after ``lm_serve``) and qwen2-moe's 4,096-token
+  one (inside ``lm_parallel``) through ``parallel.collectives`` over a
+  one-rank NCCL group and (1, 1) mesh under ``LOGICAL_RULES`` with
+  ``fsdp_rules`` (FSDP's gather, column- and row-parallel products, the
+  vocab-parallel embedding and head, the expert-parallel MoE): one K5
+  launch a layer on the Hopper kernel, launches 0 and last replayed, the
+  hidden states and logits equal to the unsharded prefill's bit for bit;
+  after ``lm_train``, ``lm_layout``: ``launch.dryrun.trace_cell`` on a fake
+  (1, 1) mesh predicts qwen2-vl-2b's train step (one step run through the
+  layout at the end of ``lm_train``) and minitron's prefill, each peak
+  within 25% of the card's for the same step, with the counted FLOPs over
+  the measured step time;
 * training (``lm_train``): qwen2-vl-2b at full width and depth through
   ``make_train_step`` (AdamW, remat "full": K5 forward twice a layer, the
   plain attention's gradient), train_4k's 4,096 tokens at batch 8, six
@@ -3182,19 +3195,27 @@ def plain_tensor_core_scores(q, k, v, *, causal: bool = True,
     qpos = torch.arange(sq, device=q.device)[:, None]
     for k0 in range(0, skv, block_k):
         n = min(block_k, skv - k0)
-        s = torch.bmm(q3, k3[:, k0:k0 + n].transpose(1, 2).contiguous(),
-                      out_dtype=torch.float32).view(b, kvh, g, sq, n) * scale
+        # causal: only rows r0.. see this block (``flash_attention_plain``)
+        r0 = min(k0, sq) if causal else 0
+        if r0 == sq:
+            break
+        qr = q3 if r0 == 0 else q3.view(b * kvh, g, sq, d)[:, :, r0:] \
+            .reshape(b * kvh, g * (sq - r0), d)
+        s = torch.bmm(qr, k3[:, k0:k0 + n].transpose(1, 2).contiguous(),
+                      out_dtype=torch.float32).view(
+                          b, kvh, g, sq - r0, n) * scale
         if causal:
             kpos = torch.arange(k0, k0 + n, device=q.device)
-            s = torch.where(qpos >= kpos[None, :], s, FA.NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
+            s = torch.where(qpos[r0:] >= kpos[None, :], s, FA.NEG_INF)
+        m_old = m[..., r0:]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        m = m_new
+        corr = torch.exp(m_old - m_new)
+        l[..., r0:] = l[..., r0:] * corr + p.sum(dim=-1)
+        m[..., r0:] = m_new
         pv = torch.matmul(p.to(v.dtype).float(),
                           vt[:, :, None, k0:k0 + n].float())
-        acc = acc * corr[..., None] + pv
+        acc[..., r0:, :] = acc[..., r0:, :] * corr[..., None] + pv
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
@@ -3463,6 +3484,7 @@ def phase_lm_prefill(device, seed: int, seq: int, cfg=None) -> tuple:
                ttft_s=prefill_s,
                prefill_tokens_per_s=seq / prefill_s, launches=launches,
                kernel=kernel, launches_expected=cfg.n_layers,
+               replayed_launches=[r["launch"] for r in replays],
                **replay_summary(replays), **times,
                simt_f32_ms=simt_f32_ms,
                kernel_share_of_prefill=(launches * times["kernel_ms"]
@@ -3689,15 +3711,18 @@ class recorded_routing:
 class evented_calls:
     """Within the block, every call of ``layers.<layer>.<name>`` (default
     the plain ``flash_attention``: MLA's, or the windowed prefill of
-    ``layers.attention.apply_gqa``; or RWKV's ``_wkv_chunked``) is
-    bracketed by CUDA events (host clock on the CPU); ``ms()`` gives a
-    span's time after a sync."""
+    ``layers.attention.apply_gqa``; or RWKV's ``_wkv_chunked``; a dotted
+    ``layer`` names a module of ``repro_torch`` itself) is bracketed by
+    CUDA events (host clock on the CPU); ``ms()`` gives a span's time after
+    a sync."""
 
     def __init__(self, device, layer: str, name: str = "flash_attention"):
         self.device, self.layer, self.name = device, layer, name
 
     def _module(self):
         import importlib
+        if "." in self.layer:
+            return importlib.import_module(f"repro_torch.{self.layer}")
         return importlib.import_module(f"repro_torch.layers.{self.layer}")
 
     def __enter__(self):
@@ -4139,6 +4164,7 @@ def phase_lm_parallel(device, seed: int, cfg, params, card: str,
     from repro_torch.layers import moe as M
     from repro_torch.models import Model
     from repro_torch.models.steps import loss_and_grad, make_prefill_step
+    from repro_torch.parallel.collectives import LOG
     from repro_torch.parallel import (LOGICAL_RULES, fsdp_rules,
                                       set_mesh_rules, tree_shardings)
     ep_cfg = with_production(cfg, MOE_QWEN)
@@ -4171,7 +4197,8 @@ def phase_lm_parallel(device, seed: int, cfg, params, card: str,
         # first and last K5 launches kept for the replay
         last = cfg.n_layers - 1
         with recorded_attention(keep={0, last}) as att:
-            FA.launches, M.ep_all_reduces = 0, 0
+            FA.launches = 0
+            LOG.reset()         # M.ep_all_reduces is a view of its tags
             ep_logits, ep_s = timed(lambda: ep_prefill(params, batch),
                                     device)
             launches, reduces = FA.launches, M.ep_all_reduces
@@ -4189,11 +4216,13 @@ def phase_lm_parallel(device, seed: int, cfg, params, card: str,
         for name in ("gspmd", "ep", "ep", "gspmd"):
             fn = ep_prefill if name == "ep" else gs_prefill
             turns[name].append(timed(lambda: fn(params, batch), device)[1])
-        # the device time of the expert-parallel body's all-reduces (y's
-        # and aux's batch mean, one of each a layer) in a prefill
-        collective = share_of_prefill(device, ep_prefill, params, tokens,
-                                      "moe", 2 * moe_layers, "_all_reduce",
-                                      "all_reduce")
+        # the device time of the layout's all-reduces in a prefill (under
+        # LOGICAL_RULES: the vocab-parallel embedding's, each layer's
+        # attention's, each MoE layer's expert-parallel sum and aux's
+        # batch mean)
+        collective = share_of_prefill(
+            device, ep_prefill, params, tokens, "parallel.collectives",
+            1 + cfg.n_layers + 2 * moe_layers, "all_reduce_", "all_reduce")
         check(tuple(ep_logits.shape) == (1, cfg.vocab)
               and bool(torch.isfinite(ep_logits.float()).all()),
               "expert-parallel prefill logits not finite or misshapen")
@@ -4216,6 +4245,10 @@ def phase_lm_parallel(device, seed: int, cfg, params, card: str,
         del x_ep, x_gs
         check(agree["argmax_equal"] and agree["max_rel_err"] <= PARALLEL_TOL,
               f"expert-parallel and gspmd prefills disagree: {agree}")
+        # the production layout (FSDP's gather, tensor parallelism and the
+        # expert-parallel MoE) against the unsharded gspmd prefill
+        layout = layout_prefill(device, ep_cfg, params, tokens, mesh,
+                                "lm_parallel_layout", whole_cfg=gs_cfg)
 
         # float32 gradients of a two-layer cut through both paths
         n = PARALLEL_GRAD_LAYERS
@@ -4231,7 +4264,7 @@ def phase_lm_parallel(device, seed: int, cfg, params, card: str,
         def ep_grad():
             with set_mesh_rules(mesh):
                 return loss_and_grad(ep_cut, params2, gbatch)
-        M.ep_all_reduces = 0
+        LOG.reset()
         ep_loss, ep_grads = ep_grad()
         grad_reduces = M.ep_all_reduces
         gs_loss, gs_grads = loss_and_grad(gs_cut, params2, gbatch)
@@ -4286,6 +4319,10 @@ def phase_lm_parallel(device, seed: int, cfg, params, card: str,
         turns_s=turns, ep_over_gspmd=sum(turns["ep"]) / sum(turns["gspmd"]),
         **collective, logits=agree, hidden_equal=hidden_equal,
         last_logits_equal=bool(torch.equal(ep_logits, gs_logits)),
+        layout={k: layout[k] for k in (
+            "prefill_s", "k5_launches", "k5_kernels", "collectives",
+            "max_memory_allocated_step", "max_abs_err", "hidden_equal",
+            "logit_rows_equal", "last_logits_equal")},
         grad=dict(layers=n, seq=grad_seq, dtype="float32",
                   ep_all_reduces=grad_reduces, ep_s=ep_grad_s,
                   gspmd_s=gs_grad_s, loss=float(ep_loss),
@@ -4298,6 +4335,227 @@ def phase_lm_parallel(device, seed: int, cfg, params, card: str,
         restore=dict(layers=n, bytes=ckpt_bytes, save_s=save_s,
                      restore_s=restore_s, equal=same))
     emit("lm_parallel", **out)
+    return out
+
+
+# ---------------------------------------------- the production layout ----
+
+LAYOUT_ROWS = 256              # logit rows held bit for bit: every 128th
+LAYOUT_PEAK_TOL = 0.25         # a dry-run peak within 25% of the card's
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def step_peak(device, fn, held: int):
+    """``fn()`` with the card's peak of the step's own bytes: the peak
+    allocated during the call, less what was allocated before it, plus
+    ``held`` (the bytes of the step's arguments, which the dry run counts
+    in its peak). -> (``fn()``, seconds, that peak)."""
+    import torch
+    if device.type != "cuda":
+        out, sec = timed(fn, device)
+        return out, sec, None
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out, sec = timed(fn, device)
+    return out, sec, torch.cuda.max_memory_allocated(device) - before + held
+
+
+def layout_prefill(device, cfg, params, tokens, mesh, phase: str,
+                   whole_cfg=None) -> dict:
+    """``cfg``'s bf16 prefill of ``tokens`` through the production layout
+    (``parallel.collectives``) on the one-rank ``mesh`` under
+    ``LOGICAL_RULES`` with ``fsdp_rules``: every weight's ``embed`` dim
+    gathered at use, the heads, kv heads, MLP and vocab on ``model``
+    (column- and row-parallel products ending in a reduce over ``model``,
+    the vocab-parallel embedding and LM head). The main path: K5's count
+    and the collective log at 0 just before, read just after (one launch a
+    layer, all on the Hopper kernel), its time and peak (``step_peak``);
+    then again with K5's launches 0 and last kept and replayed through the
+    plain version; then the unsharded prefill of the same tokens
+    (``whole_cfg``, default ``cfg``, with no mesh): the hidden states, the
+    last position's logits and the logits at ``LAYOUT_ROWS`` positions
+    must equal the layout's bit for bit."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import Model
+    from repro_torch.models.steps import make_prefill_step
+    from repro_torch.parallel import fsdp_rules, set_mesh_rules
+    from repro_torch.parallel.collectives import LOG
+    over = fsdp_rules(False)
+    model, whole = Model(cfg), Model(whole_cfg or cfg)
+    step, whole_step = make_prefill_step(model), make_prefill_step(whole)
+    batch = {"tokens": tokens}
+
+    def run(b):
+        with set_mesh_rules(mesh, over):
+            return step(params, b)
+    run({"tokens": tokens[:, :256]})
+    held = _nbytes(params) + _nbytes(tokens)
+    # ---- the main path: the layout's prefill, counted
+    with recorded_attention(keep=()) as att:
+        FA.launches = 0
+        LOG.reset()
+        logits, sec, peak = step_peak(device, lambda: run(batch), held)
+        launches, coll = FA.launches, LOG.as_dict()
+    # ---- end of the main path
+    kernels = sorted({FA.KERNELS[dt] for dt in att.dtypes})
+    if device.type == "cuda":
+        check(launches == cfg.n_layers
+              and kernels == ["flash_attention_sm90"],
+              f"{phase}: K5 {launches} launches on {kernels} in a prefill "
+              f"of {cfg.n_layers} layers")
+    last = cfg.n_layers - 1
+    with recorded_attention(keep={0, last}) as rec:
+        rec_logits = run(batch)
+    check(len(rec.calls) == len({0, last}),
+          f"{phase}: {len(rec.calls)} K5 launches kept")
+    replays = [replay_k5_launch(call, f"{phase}_replay")
+               for call in rec.calls]
+    del rec
+    seq = tokens.shape[1]
+    rows = torch.arange(seq // LAYOUT_ROWS - 1, seq, seq // LAYOUT_ROWS,
+                        device=device)
+    with set_mesh_rules(mesh, over):
+        x_lay, _ = model.forward(params, batch)
+        lay_rows = model.logits(params, x_lay[0, rows])
+    x_whole, _ = whole.forward(params, batch)
+    whole_rows = whole.logits(params, x_whole[0, rows])
+    whole_logits = whole_step(params, batch)
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, seq=seq,
+               mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               rules="LOGICAL_RULES + fsdp_rules(False)", prefill_s=sec,
+               k5_launches=launches, k5_kernels=kernels, collectives=coll,
+               max_memory_allocated_step=peak, held_bytes=held,
+               replayed_launches=[r["launch"] for r in replays],
+               **replay_summary(replays),
+               hidden_equal=bool(torch.equal(x_lay, x_whole)),
+               logit_rows_equal=bool(torch.equal(lay_rows, whole_rows)),
+               last_logits_equal=bool(torch.equal(logits, whole_logits)),
+               recorded_equal=bool(torch.equal(logits, rec_logits)))
+    del x_lay, x_whole
+    emit(phase, **out)
+    check(out["hidden_equal"] and out["logit_rows_equal"]
+          and out["last_logits_equal"] and out["recorded_equal"],
+          f"{phase}: the layout's prefill is not the unsharded one bit for "
+          f"bit: {out}")
+    return out
+
+
+def phase_lm_layout_prefill(device, seed: int, model, params,
+                            seq: int = LM_PREFILL_SEQ) -> dict:
+    """minitron-4b's ``lm_prefill`` tokens (the same generator) through
+    ``layout_prefill`` over a one-rank process group (NCCL on the card) and
+    its (1, 1) mesh."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    tokens = torch.randint(0, cfg.vocab, (1, seq), generator=gen,
+                           device=device)
+    pg_dir = start_process_group("nccl" if device.type == "cuda" else "gloo",
+                                 device)
+    try:
+        return layout_prefill(device, cfg, params, tokens,
+                              make_local_mesh(device.type),
+                              "lm_layout_prefill")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+
+
+def layout_train_step(device, model, params, opt, batch, lr: float) -> dict:
+    """One ``make_train_step`` step through the layout, on the state that
+    ``train_main_path`` trained (a one-rank process group, (1, 1) mesh,
+    ``LOGICAL_RULES`` + ``fsdp_rules``): its time, peak (``step_peak``),
+    K5 launches and collectives, for the dry run's prediction."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.parallel import fsdp_rules, set_mesh_rules
+    from repro_torch.parallel.collectives import LOG
+    pg_dir = start_process_group("nccl" if device.type == "cuda" else "gloo",
+                                 device)
+    try:
+        mesh = make_local_mesh(device.type)
+        step = make_train_step(model, lr=lr)
+        held = _nbytes(params) + _nbytes([opt.step, opt.m, opt.v]) + \
+            _nbytes(list(batch.values()))
+
+        def run():
+            with set_mesh_rules(mesh, fsdp_rules(False)):
+                return step(params, opt, batch)
+        FA.launches = 0
+        LOG.reset()
+        (loss, _, _), sec, peak = step_peak(device, run, held)
+        out = dict(loss=float(loss), seconds=sec, k5_launches=FA.launches,
+                   collectives=LOG.as_dict(), max_memory_allocated_step=peak,
+                   held_bytes=held)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+    check(bool(np.isfinite(out["loss"])), f"the layout's train step's loss "
+          f"is {out['loss']}")
+    return out
+
+
+def phase_lm_layout(device, card: str, prefill: dict, train: dict,
+                    train_seq: int, train_batch: int, train_cfg=None,
+                    prefill_cfg=None) -> dict:
+    """The dry run against the card: ``launch.dryrun.trace_cell`` on a
+    fake (1, 1) mesh predicts qwen2-vl-2b's training step at ``lm_train``'s
+    shape and minitron-4b's 32,768-token prefill, the programs the card
+    ran through the layout (``layout_train_step``, ``layout_prefill``).
+    Each prediction beside the card's peak of the same step, and the
+    counted FLOPs over the measured step time; fails if a predicted peak
+    is more than ``LAYOUT_PEAK_TOL`` from the measured one."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import fake_mesh, trace_cell
+    from repro_torch.parallel import LOGICAL_RULES, MeshShape, fsdp_rules
+    over = fsdp_rules(False)
+    rules = dict(LOGICAL_RULES, **over)
+    cells = {
+        "qwen2_vl_train": (train_cfg or get_config(VL_ARCH), ShapeConfig(
+            TRAIN_SHAPE, train_seq, train_batch, "train"), train,
+            "seconds"),
+        "minitron_prefill": (prefill_cfg or get_config(LM_ARCH), ShapeConfig(
+            "prefill_32k", prefill["seq"], 1, "prefill"), prefill,
+            "prefill_s")}
+    out = {"card": card, "hbm_bytes": (
+        torch.cuda.get_device_properties(device).total_memory
+        if device.type == "cuda" else None)}
+    with fake_mesh(MeshShape(("data", "model"), (1, 1))) as mesh:
+        for name, (cfg, shape, measured, key) in cells.items():
+            t = trace_cell(cfg, shape, mesh, rules, over)
+            pred = t["memory"]["peak_bytes"]
+            meas = measured["max_memory_allocated_step"]
+            out[name] = dict(
+                arch=cfg.name, kind=shape.kind, seq=shape.seq_len,
+                batch=shape.global_batch, trace_s=t["trace_s"],
+                predicted_peak_bytes=pred, measured_peak_bytes=meas,
+                peak_rel_err=(None if meas is None else (pred - meas) / meas),
+                predicted_held_bytes=t["memory"]["held_bytes"],
+                measured_held_bytes=measured["held_bytes"],
+                flops=t["flops"], bytes=t["bytes"],
+                step_s=measured[key],
+                tflops_per_s=t["flops"] / measured[key] / 1e12,
+                predicted_collectives=t["collectives"],
+                measured_collectives=measured["collectives"])
+    emit("lm_layout", **out)
+    if device.type == "cuda":
+        for name in cells:
+            err = out[name]["peak_rel_err"]
+            check(abs(err) <= LAYOUT_PEAK_TOL, f"lm_layout: the dry run's "
+                  f"{name} peak is {err:+.1%} from the card's")
     return out
 
 
@@ -4615,7 +4873,9 @@ def train_main_path(device, seed: int, cfg, seq: int, batch: int,
     count set to 0 before each step and read after. The first step is the
     warm-up, and its first K5 launch is kept and replayed through the plain
     version and timed; the last has CUDA events around the plain attention
-    backward (``layers.attention.attention_backward``) for its share."""
+    backward (``layers.attention.attention_backward``) for its share.
+    Then one more step runs through the production layout
+    (``layout_train_step``) on the trained state."""
     import torch
     from repro_torch.data.packing import PackedPipeline, SyntheticCorpus
     from repro_torch.kernels import flash_attention as FA
@@ -4682,6 +4942,7 @@ def train_main_path(device, seed: int, cfg, seq: int, batch: int,
     del replay
     times = k5_times(q, k, v, kw, device)
     del q, k, v
+    layout_step = layout_train_step(device, model, params, opt, b, TRAIN_LR)
     timed_steps = [r["seconds"] for r in rows[1:]]
     med = float(np.median(timed_steps))
     tokens = seq * batch
@@ -4697,6 +4958,7 @@ def train_main_path(device, seed: int, cfg, seq: int, batch: int,
                 attention_backward_calls=n_bwd,
                 attention_backward_ms=bwd, evented_step_ms=whole,
                 attention_backward_share=bwd / whole,
+                layout_step=layout_step,
                 **{f"replay_{key}": val for key, val in rep.items()},
                 **times)
 
@@ -4893,10 +5155,12 @@ def main(argv=None) -> int:
                                               LM_PREFILL_SEQ)
     lap("lm_prefill")
     phase_lm_serve(device, args.seed, model, params)
+    lap("lm_serve")
+    layout_pre = phase_lm_layout_prefill(device, args.seed, model, params)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    lap("lm_serve")
+    lap("lm_layout_prefill")
     lm_moe, qwen_cfg, qwen_params = phase_lm_moe(device, args.seed)
     lap("lm_moe")
     par = phase_lm_parallel(device, args.seed, qwen_cfg, qwen_params,
@@ -4911,6 +5175,10 @@ def main(argv=None) -> int:
     lap("lm_frontends")
     train = phase_lm_train(device, args.seed)
     lap("lm_train")
+    layout = phase_lm_layout(device, info["card"], layout_pre,
+                             train["layout_step"], train["seq"],
+                             train["batch"])
+    lap("lm_layout")
     emit("phase_seconds", **lap.seconds)
     qwen = lm_moe["qwen2_moe"]
     hubert, vl = frontends["hubert"], frontends["qwen2_vl"]
@@ -5018,11 +5286,16 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/flash_attention.py:62",
         "launches": (prefill["launches"] + qwen["k5_launches"]
                      + par["k5_launches"] + hubert["k5_launches"]
-                     + vl["k5_launches"] + train["k5_launches"]),
+                     + vl["k5_launches"] + train["k5_launches"]
+                     + layout_pre["k5_launches"]
+                     + par["layout"]["k5_launches"]
+                     + train["layout_step"]["k5_launches"]),
         "max_abs_err": max(attn["max_abs_err"], prefill["max_abs_err"],
                            qwen["max_abs_err"], par["max_abs_err"],
                            hubert["max_abs_err"],
-                           vl["max_abs_err"], train["replay_max_abs_err"]),
+                           vl["max_abs_err"], train["replay_max_abs_err"],
+                           layout_pre["max_abs_err"],
+                           par["layout"]["max_abs_err"]),
         "ms": prefill["kernel_ms"], "plain_ms": prefill["plain_ms"],
         "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
         "library_ms": prefill["library_ms"], "matches_plain": True,
@@ -5034,6 +5307,20 @@ def main(argv=None) -> int:
         "qwen2_moe_parallel": {k: par[k] for k in k5_keys + (
             "seq", "ep_all_reduces", "ep_prefill_s", "gspmd_prefill_s")},
         "hubert": {k: hubert[k] for k in k5_keys},
+        # the production layout on the one-rank mesh: minitron-4b's and
+        # qwen2-moe's prefills (bit for bit the unsharded ones) and a
+        # qwen2-vl-2b train step, with the dry run's peaks beside the card's
+        "layout": {
+            "minitron_prefill": {k: layout_pre[k] for k in (
+                "k5_launches", "k5_kernels", "prefill_s", "max_abs_err",
+                "replayed_launches")},
+            "qwen2_moe_prefill": {k: par["layout"][k] for k in (
+                "k5_launches", "k5_kernels", "prefill_s", "max_abs_err")},
+            "train_step_k5_launches": train["layout_step"]["k5_launches"],
+            "dry_run": {name: {k: layout[name][k] for k in (
+                "predicted_peak_bytes", "measured_peak_bytes",
+                "peak_rel_err", "flops", "tflops_per_s")}
+                for name in ("qwen2_vl_train", "minitron_prefill")}},
         "qwen2_vl": {k: vl[k] for k in k5_keys},
         "train": {"k5_launches": train["k5_launches"],
                   "k5_launches_per_step": train["k5_launches_per_step"],

@@ -11,8 +11,8 @@ before ``p @ v``, the sum is float32, and the output is
 
 ``flash_attention_plain`` is that function as blocked PyTorch ops over
 ``block_k``-wide key blocks, every row at once (rows are independent, so
-``block_q`` does not change the arithmetic); a ragged last block is simply
-shorter.
+``block_q`` does not change the arithmetic; a causal block updates only the
+rows that see one of its keys); a ragged last block is simply shorter.
 
 ``flash_attention_fwd`` dispatches on the tensors' device: the plain
 version for CPU tensors; for CUDA tensors with D in
@@ -22,12 +22,20 @@ kernel (``csrc/flash_attention.cu``) and bfloat16 to the Hopper kernel
 tiles by TMA); it raises for any other CUDA tensor: there is no fallback
 between them. ``kernel_block_k`` is each kernel's key tile, where its
 softmax rescales. ``launches`` counts kernel launches.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) the wrapper is the
+custom op ``repro_torch::flash_attention_fwd``: a shape function, whose
+FLOP formula (``tile_flops``) ``torch.utils.flop_counter.FlopCounterMode``
+counts: the work of every tile the kernel of the dtype computes, the
+causal tiles past a query block's last visible key skipped as the kernels
+skip them.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ._build import check_launch, check_params_size, load_library
 
@@ -42,6 +50,10 @@ KERNELS = {torch.float32: "flash_attention",
            torch.bfloat16: "flash_attention_sm90"}
 # the largest byte stride a TMA tensor map takes
 _TMA_MAX_STRIDE = 1 << 40
+
+# each kernel's (query rows a block, keys a tile): csrc/flash_attention.cu's
+# kBQ and kBK, csrc/flash_attention_sm90.cu's kBM and kBN
+KERNEL_TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
 
 # kernel launches of ``flash_attention_fwd`` on CUDA tensors (plain integer;
 # set to 0 before a run and read after it to see which path ran)
@@ -130,19 +142,27 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       device=q.device)
     qpos = torch.arange(sq, device=q.device)[:, None]
     for k0 in range(0, skv, bk):
+        # causal: the rows before k0 see none of this block's keys, an
+        # exact no-op of the online softmax (each row's max already holds
+        # key 0's score), so only rows r0.. take the block
+        r0 = min(k0, sq) if causal else 0
+        if r0 == sq:
+            break
         kb = kf[:, :, k0:k0 + bk]
-        s = torch.matmul(qg, kb[:, :, None].transpose(-1, -2)) * scale
+        s = torch.matmul(qg[..., r0:, :],
+                         kb[:, :, None].transpose(-1, -2)) * scale
         if causal:
             kpos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
-            s = torch.where(qpos >= kpos[None, :], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
+            s = torch.where(qpos[r0:] >= kpos[None, :], s, NEG_INF)
+        m_old = m[..., r0:]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        m = m_new
+        corr = torch.exp(m_old - m_new)
+        l[..., r0:] = l[..., r0:] * corr + p.sum(dim=-1)
+        m[..., r0:] = m_new
         pv = torch.matmul(p.to(v.dtype).float(),
                           vt[:, :, None, k0:k0 + bk].float())
-        acc = acc * corr[..., None] + pv
+        acc[..., r0:, :] = acc[..., r0:, :] * corr[..., None] + pv
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
@@ -226,4 +246,44 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      block_q=block_q, block_k=block_k)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, float(scale))
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal,
+                                                         float(scale))
     raise ValueError(f"unsupported device {q.device}")
+
+
+def tile_flops(b: int, sq: int, skv: int, h: int, d: int, causal: bool,
+               dtype: torch.dtype) -> int:
+    """The FLOPs of the kernel of ``dtype`` on ``[b, sq, h, d]`` queries
+    against ``skv`` keys: ``4 * BM * BN * d`` (the score tile and its
+    product with v) for every (query block, key tile) it computes. A causal
+    block stops at the tile holding its last visible key, as the kernels
+    do."""
+    bm, bn = KERNEL_TILES[dtype]
+    tiles = 0
+    for q0 in range(0, sq, bm):
+        last_row = min(q0 + bm, sq) - 1
+        last_key = min(last_row, skv - 1) if causal else skv - 1
+        tiles += last_key // bn + 1 if last_key >= 0 else 0
+    return 4 * bm * bn * d * tiles * b * h
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _k5_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           scale: float) -> torch.Tensor:
+    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+
+
+@_k5_op.register_fake
+def _k5_shape(q, k, v, causal, scale):
+    _check_shapes(q, k, v)
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _k5_flops(q, k, v, causal, scale, *, out_val=None) -> int:
+    b, sq, h, d = q.shape
+    return tile_flops(b, sq, k.shape[1], h, d, causal, q.dtype)
+
+
+register_flop_formula(torch.ops.repro_torch.flash_attention_fwd,
+                      get_raw=True)(_k5_flops)

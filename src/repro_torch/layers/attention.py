@@ -18,6 +18,10 @@ recomputes ``flash_attention`` (the reference's jnp function, which is what
 JAX differentiates: the reference has no backward kernel) under autograd,
 ``BACKWARD_ROWS`` query rows at a time, and returns its gradients; a causal
 row block reads only the key chunks its rows can see.
+
+Under a ``DeviceMesh`` (``parallel.set_mesh_rules``) ``apply_gqa`` runs on
+this rank's blocks: split query heads with K5 on the local heads, and a
+decode cache split by kv heads or by positions.
 """
 from __future__ import annotations
 
@@ -42,8 +46,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset, window: int = 0,
                     kv_len: torch.Tensor | int | None = None,
                     k_positions: torch.Tensor | None = None,
-                    chunk: int = 1024, scale: float | None = None
-                    ) -> torch.Tensor:
+                    chunk: int = 1024, scale: float | None = None,
+                    stats: bool = False):
     """q [B,Sq,H,Dk], k [B,Skv,KVH,Dk], v [B,Skv,KVH,Dv] -> [B,Sq,H,Dv].
 
     ``q_offset``: absolute position of q[0] (decode passes the write
@@ -51,6 +55,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     query. ``kv_len``: keys at positions >= kv_len are masked.
     ``k_positions``: explicit absolute key positions [Skv] (ring-buffer
     caches; unwritten slots carry a large negative position).
+    ``stats``: return the online softmax's float32 state instead, (the
+    unnormalised accumulator [B,Sq,H,Dv], the running max and the
+    denominator [B,Sq,H]), for a caller that combines key ranges.
     """
     b, sq, h, dk = q.shape
     _, skv, kvh, dv = v.shape
@@ -86,6 +93,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * corr[..., None] + torch.einsum(
             "bqhgk,bkhd->bqhgd", p.to(vch.dtype).float(), vch.float())
         m = m_new
+    if stats:
+        return (acc.reshape(b, sq, h, dv), m.reshape(b, sq, h),
+                l.reshape(b, sq, h))
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.reshape(b, sq, h, dv).to(q.dtype)
 
@@ -159,6 +169,28 @@ def init_gqa(col: "ParamInit", n: int, d_model: int, n_heads: int,
     }
 
 
+def cache_kv_heads(cfg) -> int:
+    """The decode cache's kv heads: ``kv_replicate_to`` where it widens the
+    kv heads by a whole factor, else ``n_kv_heads`` (the reference's
+    ``init_cache``)."""
+    r = cfg.kv_replicate_to
+    return r if r > cfg.n_kv_heads and r % cfg.n_kv_heads == 0 \
+        else cfg.n_kv_heads
+
+
+def cache_head_sharded(cfg, n_model: int) -> bool:
+    """Whether a ``gqa`` decode cache splits its kv heads over ``model``
+    (they divide it) rather than its positions (context parallel): the
+    reference's ``launch/specs.py`` ``cache_specs`` rule."""
+    return cache_kv_heads(cfg) % n_model == 0
+
+
+def _rope(cfg, pos_ids, hd):
+    if cfg.mrope_sections:
+        return mrope_cos_sin(pos_ids, hd, cfg.rope_theta, cfg.mrope_sections)
+    return rope_cos_sin(pos_ids, hd, cfg.rope_theta)
+
+
 def apply_gqa(p: dict, x: torch.Tensor, cfg, *, pos_ids, cache=None,
               write_pos=None, window: int = 0, causal: bool = True
               ) -> tuple[torch.Tensor, dict | None]:
@@ -167,41 +199,124 @@ def apply_gqa(p: dict, x: torch.Tensor, cfg, *, pos_ids, cache=None,
     pos_ids: [B, S] (or [3, B, S] when cfg.mrope_sections is set).
     write_pos: int position at which this step's K/V go into the cache.
     Decode writes the cache in place and returns the same tensors.
-    """
-    dtype = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dtype))
 
-    hd = q.shape[-1]
-    if cfg.mrope_sections:
-        cos, sin = mrope_cos_sin(pos_ids, hd, cfg.rope_theta,
-                                 cfg.mrope_sections)
-    else:
-        cos, sin = rope_cos_sin(pos_ids, hd, cfg.rope_theta)
+    Under a ``DeviceMesh`` (``parallel.set_mesh_rules``) the weights and
+    the cache are this rank's blocks (the production layout; without one,
+    ``parallel.collectives.WHOLE``: nothing is split and no collective
+    runs). Query heads split over ``model`` where the rules split them:
+    ``x`` enters through ``copy_to_model``, each rank projects its heads,
+    and the row-parallel ``wo`` ends in one ``reduce_from_model``. The kv
+    heads follow their own spec: split with the query heads, or computed
+    whole and narrowed to the ones this rank's query heads read
+    (``slice_replicated``). Heads the rules leave whole are computed whole
+    on every rank, with no collective.
+
+    Decode: a cache whose kv heads divide ``model`` is split by heads, and
+    each rank attends with the query heads that read its kv heads; else it
+    is split by positions, each rank attends over its positions with every
+    query head, and the partial softmax states are combined over ``model``
+    by an exact log-sum-exp (the online softmax's combine of key blocks).
+    The new token's k and v go to the rank holding position
+    ``write_pos``. The windowed attention's layout is queue 1 item 12h-2:
+    with a window, a mesh raises."""
+    from ..parallel.collectives import all_reduce_, layout
+    lay = layout()
+    if window and lay.mesh is not None:
+        raise NotImplementedError("the windowed attention's layout is queue "
+                                  "1 item 12h-2")
+    dtype = x.dtype
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    wq, sq = lay.weight(p["wq"], ("embed", "heads", "head_dim"), (d, h, hd),
+                        dtype)
+    wk, sk = lay.weight(p["wk"], ("embed", "kv_heads", "head_dim"),
+                        (d, kv, hd), dtype)
+    wv, _ = lay.weight(p["wv"], ("embed", "kv_heads", "head_dim"),
+                       (d, kv, hd), dtype)
+    wo, _ = lay.weight(p["wo"], ("heads", "head_dim", "embed"), (h, hd, d),
+                       dtype)
+    q_tp, kv_tp = lay.on_model(sq, 1), lay.on_model(sk, 1)
+    if kv_tp and not q_tp:
+        raise ValueError("kv heads split over model with the query heads "
+                         "whole")
+    xt = lay.copy_to_model(x) if q_tp else x
+    q = torch.einsum("bsd,dhk->bshk", xt, wq)
+    xk = xt if kv_tp else x
+    k = torch.einsum("bsd,dhk->bshk", xk, wk)
+    v = torch.einsum("bsd,dhk->bshk", xk, wv)
+    cos, sin = _rope(cfg, pos_ids, q.shape[-1])
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    n = lay.size("model")
+    h0, hl = lay.model_block(h) if q_tp else (0, h)
 
     if cache is None:
-        if window == 0:
-            out = K5Attention.apply(q, k, v, causal)
-        else:
+        if window:
             out = flash_attention(q, k, v, causal=causal, q_offset=0,
                                   window=window)
-        new_cache = None
-    else:
-        kvh_cache = cache["k"].shape[-2]
-        if kvh_cache != k.shape[-2]:
-            # KV-head replication (cfg.kv_replicate_to), as the reference
-            rep = kvh_cache // k.shape[-2]
-            k = torch.repeat_interleave(k, rep, dim=2)
-            v = torch.repeat_interleave(v, rep, dim=2)
-        ck, cv = cache["k"], cache["v"]
-        s = k.shape[1]
+            return torch.einsum("bshk,hkd->bsd", out, wo), None
+        g = h // kv
+        if q_tp and not kv_tp:
+            kv0, kv1 = h0 // g, (h0 + hl - 1) // g + 1
+            if hl % (kv1 - kv0) or any((h0 + i) // g - kv0 != i // (
+                    hl // (kv1 - kv0)) for i in range(hl)):
+                raise ValueError(f"query heads {h0}..{h0 + hl - 1} do not "
+                                 f"read whole groups of {kv} kv heads")
+            k = lay.slice_replicated(k, 2, kv0, kv1 - kv0)
+            v = lay.slice_replicated(v, 2, kv0, kv1 - kv0)
+        out = K5Attention.apply(q, k, v, causal)
+        y = torch.einsum("bshk,hkd->bsd", out, wo)
+        return (lay.reduce_from_model(y) if q_tp else y), None
+
+    ck, cv = cache["k"], cache["v"]
+    s = k.shape[1]
+    if cache_head_sharded(cfg, n):
+        kvc = ck.shape[-2] * n          # the whole cache's kv heads
+        if kvc != kv:                   # cfg.kv_replicate_to, as the reference
+            k = torch.repeat_interleave(k, kvc // kv, dim=2)
+            v = torch.repeat_interleave(v, kvc // kv, dim=2)
+        if h % kvc:
+            raise ValueError(f"{h} query heads do not group over {kvc} "
+                             "kv heads")
+        c0, cl = lay.model_block(kvc)
+        if not kv_tp:                   # k, v computed whole: this block
+            k, v = k[:, :, c0:c0 + cl], v[:, :, c0:c0 + cl]
         ck[:, write_pos:write_pos + s] = k.to(ck.dtype)
         cv[:, write_pos:write_pos + s] = v.to(cv.dtype)
+        g = h // kvc
+        qa, ql = c0 * g, cl * g         # the query heads that read them
+        if not q_tp:
+            q, wo = q[:, :, qa:qa + ql], wo[qa:qa + ql]
         out = flash_attention(q, ck.to(dtype), cv.to(dtype), causal=True,
                               q_offset=write_pos, window=window)
-        new_cache = {"k": ck, "v": cv}
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
-    return y, new_cache
+        y = torch.einsum("bshk,hkd->bsd", out, wo)
+        return lay.reduce_from_model(y), {"k": ck, "v": cv}
+
+    # context parallel: this rank's positions [s0, s0 + sl)
+    kvc = cache_kv_heads(cfg)
+    if kvc != kv:
+        k = torch.repeat_interleave(k, kvc // kv, dim=2)
+        v = torch.repeat_interleave(v, kvc // kv, dim=2)
+    sl = ck.shape[1]
+    s0 = lay.rank("model") * sl
+    if s0 <= write_pos < s0 + sl:
+        if write_pos + s > s0 + sl:
+            raise ValueError("a decode write crosses two ranks' positions")
+        ck[:, write_pos - s0:write_pos - s0 + s] = k.to(ck.dtype)
+        cv[:, write_pos - s0:write_pos - s0 + s] = v.to(cv.dtype)
+    if q_tp:
+        q = lay.gather_model(q, 2)
+    kpos = s0 + torch.arange(sl, dtype=torch.int32, device=x.device)
+    acc, m, l = flash_attention(q, ck.to(dtype), cv.to(dtype), causal=True,
+                                q_offset=write_pos, k_positions=kpos,
+                                chunk=min(1024, sl), stats=True)
+    grp = lay.group("model")
+    top = all_reduce_(m.clone(), grp, "max")
+    w = torch.exp(m - top)              # 0 for a rank with no visible key
+    l = all_reduce_(l * w, grp)
+    acc = all_reduce_(acc * w[..., None], grp)
+    out = (acc / torch.clamp_min(l[..., None], 1e-30)).to(dtype)
+    if q_tp:
+        y = torch.einsum("bshk,hkd->bsd", out[:, :, h0:h0 + hl], wo)
+        return lay.reduce_from_model(y), {"k": ck, "v": cv}
+    return torch.einsum("bshk,hkd->bsd", out, wo), {"k": ck, "v": cv}

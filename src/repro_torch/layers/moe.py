@@ -17,27 +17,33 @@ where an ``index_add_`` on the card would add in the order its atomics land.
 instead, the reference's ``_apply_moe_shard_map``. It runs on every rank of
 the mesh with that rank's blocks: ``x`` its batch slice (over ``pod`` and
 ``data``), ``w_gate``/``w_up``/``w_down`` its ``E / n_model`` experts (dim
-0 over ``model``), the router and the shared MLP whole. Each rank routes
+0 over ``model``), the router whole; every ``embed`` dim that FSDP's rule
+splits is gathered at use (``parallel.collectives``), and the shared MLP
+is tensor-parallel where the rules split its ``mlp`` dim. Each rank routes
 its own tokens, with a capacity taken from its own token count, keeps only
 the pairs of its experts, runs them and combines locally; then exactly one
 all-reduce over the ``model`` group a layer (``ep_all_reduces`` counts
-them) sums each token's contributions. ``aux``'s expert means are averaged
-over the batch ranks. Which pairs drop is decided per rank, so with drops
-the result differs from the gspmd path's; its parity target is the
-reference's ``_apply_moe_shard_map``. With one rank it computes the gspmd
-path's function, op for op.
+them; ``parallel.collectives.LOG`` logs it with the rest) sums each
+token's contributions and the shared MLP's partial sums. ``aux``'s expert
+means are averaged over the batch ranks. Which pairs drop is decided per
+rank, so with drops the result differs from the gspmd path's; its parity
+target is the reference's ``_apply_moe_shard_map``. With one rank it
+computes the gspmd path's function, op for op. The gspmd body across
+ranks, which needs a capacity count over the global batch, is not ported:
+under a mesh of more than one rank it raises.
 
 Gradients: each ``model`` rank computes the same loss on the same summed
 ``y``, so that all-reduce passes its gradient through unchanged
 (Megatron's forward all-reduce, backward identity), and the gradients that
 a rank's experts give ``x`` and the combine weights are summed over
 ``model`` in the backward (forward identity, backward all-reduce). The
-router's gradient from ``aux`` is thus counted once, and the router, the
-shared MLP and ``x`` get the whole gradient on every ``model`` rank. Over
-the batch ranks the gradients of the router, the shared MLP and the
-experts are partial and sum to the whole (the data-parallel all-reduce is
-the caller's), with each rank's loss adding the replicated ``aux`` once:
-the batch mean of ``aux``'s terms divides its gradient by the batch ranks.
+router's gradient from ``aux`` is thus counted once, and the router and
+``x`` get the whole gradient on every ``model`` rank. Over the batch ranks
+the gradients of the router, the shared MLP and the experts are partial
+and sum to the whole (the data-parallel all-reduce is the caller's:
+``models.steps``), with each rank's loss adding the replicated ``aux``
+once: the batch mean of ``aux``'s terms divides its gradient by the batch
+ranks.
 The expert counts are padded to a multiple of 16, as the reference pads
 them for its mesh (qwen2-moe's 60 -> 64).
 """
@@ -176,109 +182,94 @@ def apply_moe(p: dict, x: torch.Tensor, cfg
     """x [B,S,d] -> (y [B,S,d], aux loss): the reference's
     ``_apply_moe_gspmd``, or its ``_apply_moe_shard_map`` for
     ``moe_impl="shard_map"`` under a mesh with a ``model`` dim."""
+    from ..parallel.collectives import layout
+    from ..parallel.sharding import current, mesh_dims
+    lay = layout()
     if cfg.moe_impl == "shard_map":
-        from ..parallel.sharding import current, mesh_dims
         mesh, _ = current()
         if mesh is not None and "model" in mesh_dims(mesh):
-            return _apply_moe_expert_parallel(p, x, cfg, mesh)
+            if lay.mesh is None:
+                raise TypeError("the expert-parallel MoE runs over a "
+                                "DeviceMesh, not a MeshShape")
+            return _apply_moe_expert_parallel(lay, p, x, cfg)
+    if math.prod(lay.dims.values()) > 1:
+        raise NotImplementedError(
+            "the gspmd MoE body across ranks needs a capacity count over the "
+            "global batch, which is not ported (ROADMAP queue 1); run "
+            "moe_impl='shard_map' over a mesh")
+    if lay.mesh is not None:    # else the body casts each weight at its use
+        p = dict(p, **_moe_weights(lay, p, x, cfg))
     b, s, d = x.shape
     r = route(p, x, cfg)
     y = _experts(p, x.reshape(b * s, d), r.idx.reshape(-1), r, r.weights)
     y = y.reshape(b, s, d)
     if "shared" in p:
-        y = y + apply_mlp(p["shared"], x, "swiglu")
+        y = y + apply_mlp(p["shared"], x, "swiglu", _shared_dff(cfg))
     return y, r.aux
+
+
+def _shared_dff(cfg) -> int:
+    return cfg.shared_dff or cfg.expert_dff
+
+
+def _moe_weights(lay, p: dict, x: torch.Tensor, cfg) -> dict:
+    """The router (in its own dtype: routing is float32) and the experts
+    (cast to ``x``'s dtype, which the body would cast them to) with FSDP's
+    ``embed`` dims gathered, each checked against the block the active
+    rules give this rank."""
+    d, f = x.shape[-1], cfg.expert_dff
+    e = padded_experts(cfg.n_experts)
+    full = {"router": ((d, e), ("embed", None)),
+            "w_gate": ((e, d, f), ("expert", "embed", "expert_mlp")),
+            "w_up": ((e, d, f), ("expert", "embed", "expert_mlp")),
+            "w_down": ((e, f, d), ("expert", "expert_mlp", "embed"))}
+    return {k: lay.weight(p[k], axes, shape,
+                          p[k].dtype if k == "router" else x.dtype)[0]
+            for k, (shape, axes) in full.items()}
 
 
 # ------------------------------------------------------ expert parallel ----
 
-ep_all_reduces = 0       # the expert-parallel body's forward all-reduces
+EP_TAG = "moe-ep"         # the expert-parallel body's all-reduce in LOG.tags
 
 
-def _all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
-    import torch.distributed as dist
-    out = t.clone()
-    for g in groups:
-        dist.all_reduce(out, group=g)
-    return out
+def __getattr__(name: str):
+    if name == "ep_all_reduces":    # the body's forward all-reduces so far
+        from ..parallel.collectives import LOG
+        return LOG.tags.get(EP_TAG, 0)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-class _SumForward(torch.autograd.Function):
-    """Forward: the sum over ``group`` (the one counted all-reduce);
-    backward: the gradient as it is (every rank's loss reads the sum)."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        global ep_all_reduces
-        ep_all_reduces += 1
-        return _all_reduce(t, (group,))
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _SumBackward(torch.autograd.Function):
-    """Forward: ``t`` as it is; backward: the gradient summed over
-    ``group`` (each rank's experts give part of it)."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_reduce(g.contiguous(), (ctx.group,)), None
-
-
-class _BatchMean(torch.autograd.Function):
-    """Forward: the mean over the batch ranks (``groups``, ``n`` ranks in
-    all); backward: the gradient over ``n``, the share of one rank's loss in
-    the replicated value's once-counted gradient."""
-
-    @staticmethod
-    def forward(ctx, t, groups, n):
-        ctx.n = n
-        return _all_reduce(t, groups) / n
-
-    @staticmethod
-    def backward(ctx, g):
-        return g / ctx.n, None, None
-
-
-def _apply_moe_expert_parallel(p: dict, x: torch.Tensor, cfg, mesh
+def _apply_moe_expert_parallel(lay, p: dict, x: torch.Tensor, cfg
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """``src/repro/layers/moe.py:122`` on this rank's blocks (see the
-    module docstring): x [B_loc,S,d] -> (y [B_loc,S,d], aux)."""
-    from ..parallel.sharding import MeshShape, mesh_dims
-    if isinstance(mesh, MeshShape):
-        raise TypeError("the expert-parallel MoE runs over a DeviceMesh, "
-                        "not a MeshShape")
-    dims = mesh_dims(mesh)
+    module docstring): x [B_loc,S,d] -> (y [B_loc,S,d], aux). The router's
+    and the experts' ``embed`` dims are gathered at use where FSDP's rule
+    splits them; the shared MLP is tensor-parallel where the rules split
+    its ``mlp`` dim, and then its partial sum joins the experts' in the
+    layer's one all-reduce over ``model``."""
+    p = dict(p, **_moe_weights(lay, p, x, cfg))
     e = p["router"].shape[-1]
     e_loc = p["w_gate"].shape[0]
-    if e_loc * dims["model"] != e:
-        raise ValueError(f"{e_loc} local experts on {dims['model']} model "
-                         f"ranks for a router over {e}")
-    if (p["router"].shape[0] != x.shape[-1]
-            or p["w_gate"].shape[1:] != (x.shape[-1], cfg.expert_dff)):
-        raise ValueError("the MoE's weights are split on a dim other than "
-                         "expert: place them with expert_parallel_rules")
-    base = mesh.get_local_rank("model") * e_loc
-    batch = [a for a in ("pod", "data") if a in dims]
-    n_batch = math.prod(dims[a] for a in batch)
-    model_group = mesh.get_group("model")
+    if e_loc * lay.size("model") != e:
+        raise ValueError(f"{e_loc} local experts on {lay.size('model')} "
+                         f"model ranks for a router over {e}")
+    base = lay.rank("model") * e_loc
     b, s, d = x.shape
     r = route(p, x, cfg, experts=range(base, base + e_loc),
-              batch_mean=lambda m: _BatchMean.apply(
-                  m, [mesh.get_group(a) for a in batch], n_batch))
-    xt = _SumBackward.apply(x.reshape(b * s, d), model_group)
-    weights = _SumBackward.apply(r.weights, model_group)
+              batch_mean=lay.batch_mean)
+    xt = lay.copy_to_model(x.reshape(b * s, d))
+    weights = lay.copy_to_model(r.weights)
     mine = (r.idx >= base) & (r.idx < base + e_loc)
     eid = torch.where(mine, r.idx - base, 0).reshape(-1)
-    y = _experts(p, xt, eid, r, weights)
-    y = _SumForward.apply(y, model_group).reshape(b, s, d)
+    y = _experts(p, xt, eid, r, weights).reshape(b, s, d)
+    shared = split = None
     if "shared" in p:
-        y = y + apply_mlp(p["shared"], x, "swiglu")
+        shared, split = apply_mlp(p["shared"], x, "swiglu", _shared_dff(cfg),
+                                  partial=True)
+        if split:
+            y = y + shared
+    y = lay.reduce_from_model(y, EP_TAG)
+    if shared is not None and not split:
+        y = y + shared
     return y, r.aux

@@ -33,6 +33,15 @@ positions' token embeddings, qwen2-vl; M-RoPE ids stay text-mode).
 ``forward`` is also the training forward: ``cfg.remat`` recomputes each
 layer in the backward pass (``_remat``), as the reference's
 ``jax.checkpoint`` around each segment body does.
+
+Under a ``DeviceMesh`` installed by ``parallel.set_mesh_rules`` the
+parameters, inputs and cache are this rank's blocks under the active rules
+(the production layout, ``parallel.collectives``): the vocab-parallel
+embedding and LM head (logits gathered over ``model``), tensor-parallel
+attention and MLPs, FSDP's gather of each weight at use, the
+expert-parallel MoE, and ``init_cache`` at the rank's shapes. The MLA,
+RWKV6 and RG-LRU-with-window layouts are not ported (queue 1 item 12h-2):
+a mesh whose rules split one of their weights raises.
 """
 from __future__ import annotations
 
@@ -43,7 +52,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..layers.attention import apply_gqa, flash_attention, init_gqa
+from ..layers.attention import (apply_gqa, cache_kv_heads, flash_attention,
+                                init_gqa)
 from ..layers.grad import taking_grad
 from ..layers.mla import apply_mla, init_mla
 from ..layers.mlp import apply_mlp, init_mlp
@@ -60,6 +70,9 @@ MLPS = ("mlp", "moe", "rwkv_cm")
 FRONTENDS = ("tokens", "frames")
 REMAT = ("none", "dots", "full")
 EMPTY_POS = -10**9          # a ring slot no position has been written to
+# mixers whose layout over a mesh is not ported (queue 1 item 12h-2)
+UNPORTED_LAYOUTS = {"mla": "MLA", "rwkv": "RWKV6", "rglru": "RG-LRU",
+                    "wattn": "windowed attention"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,7 +237,7 @@ def _apply_block(p, x, cfg, kind, *, pos_ids, cache, write_pos):
                          write_pos=write_pos, causal=cfg.causal,
                          window=cfg.window if mixer == "wattn" else 0)
     if cfg.parallel_block:
-        return x + y + apply_mlp(p["mlp"], h, cfg.act), aux
+        return x + y + apply_mlp(p["mlp"], h, cfg.act, cfg.d_ff), aux
     x = x + y
     h2 = rms_norm(x, p["ln2"])
     if mlpk == "moe":
@@ -235,7 +248,7 @@ def _apply_block(p, x, cfg, kind, *, pos_ids, cache, write_pos):
         if cache is not None:
             cache["channel_shift"].copy_(st["shift"])
     else:
-        out = apply_mlp(p["mlp"], h2, cfg.act)
+        out = apply_mlp(p["mlp"], h2, cfg.act, cfg.d_ff)
     return x + out, aux
 
 
@@ -279,11 +292,14 @@ def _remat(fn, mode: str):
     inputs (``torch.utils.checkpoint``); ``"dots"`` also saves the
     products that ``saves_product`` names, through selective
     checkpointing. Either way the gradients are the same function; only
-    what is kept between the passes differs."""
+    what is kept between the passes differs. The recompute runs under the
+    mesh and rules of the forward (``parallel.sharding.bound``)."""
     if mode == "none":
         return fn
     from torch.utils.checkpoint import (checkpoint,
                                         create_selective_checkpoint_contexts)
+    from ..parallel.sharding import bound
+    fn = bound(fn)
     if mode == "full":
         return lambda *a, **kw: checkpoint(fn, *a, use_reentrant=False, **kw)
 
@@ -308,6 +324,7 @@ class Model:
         check_ported(cfg)
         self.cfg = cfg
         self.segments = build_segments(cfg)
+        self._plan = None           # (a Layout, its tree_shardings)
 
     def init(self, seed: int = 0, *, device=None) -> dict:
         """Random parameters on ``device`` (default: the CUDA card); on
@@ -361,11 +378,14 @@ class Model:
         first P positions' embeddings), or ``"frames"`` [B,S,d] for a
         ``frames`` config (``src/repro/models/lm.py:267-283``)."""
         dtype = torch_dtype(self.cfg.dtype)
+        lay = self.active_layout()
         if self.cfg.frontend == "frames":
-            x = torch.matmul(batch["frames"].to(dtype),
-                             params["in_proj"].to(dtype))
+            d = self.cfg.d_model
+            w, _ = lay.weight(params["in_proj"], ("embed", None), (d, d),
+                              dtype)
+            x = torch.matmul(batch["frames"].to(dtype), w)
         else:
-            x = params["embed"][batch["tokens"].long()].to(dtype)
+            x = self._embed(lay, params, batch["tokens"], dtype)
             if "patch_embeds" in batch:
                 x = _patch(x, batch["patch_embeds"].to(dtype))
         b, s = x.shape[:2]
@@ -375,16 +395,96 @@ class Model:
         return rms_norm(x, params["final_norm"]), aux
 
     def logits(self, params, x: torch.Tensor) -> torch.Tensor:
-        head = (params["embed"].T if self.cfg.tie_embeddings
-                else params["lm_head"])
-        return torch.matmul(x, head.to(x.dtype))
+        """x [..., d] -> the logits over the whole vocab; under a mesh each
+        rank projects its vocab block and the blocks are gathered over
+        ``model``."""
+        lay = self.active_layout()
+        head, split = self.head(lay, params, x.dtype)
+        if not split:
+            return torch.matmul(x, head)
+        return lay.gather_model(torch.matmul(lay.copy_to_model(x), head),
+                                x.dim() - 1)
+
+    def head(self, lay, params, dtype) -> tuple[torch.Tensor, bool]:
+        """(this rank's ``[d, V or V/n]`` LM head in ``dtype``, FSDP's dims
+        gathered; whether its vocab is split over ``model``)."""
+        v, d = self.cfg.vocab, self.cfg.d_model
+        if self.cfg.tie_embeddings:
+            w, spec = lay.weight(params["embed"], ("vocab", "embed"), (v, d),
+                                 dtype)
+            return w.T, lay.on_model(spec, 0)
+        w, spec = lay.weight(params["lm_head"], ("embed", "vocab"), (d, v),
+                             dtype)
+        return w, lay.on_model(spec, 1)
+
+    def _embed(self, lay, params, tokens: torch.Tensor, dtype
+               ) -> torch.Tensor:
+        """Token embeddings in ``dtype``. Under a mesh whose rules split the
+        vocab over ``model`` (the vocab-parallel embedding): each rank
+        looks up the tokens in its block, zeroes the others, and the rows
+        are summed over ``model``; FSDP's ``embed`` dim is gathered first."""
+        table = params["embed"]
+        full = (self.cfg.vocab, self.cfg.d_model)
+        spec = lay.check(table, ("vocab", "embed"), full)
+        if lay.names(spec, 1):
+            table, _ = lay.weight(table, ("vocab", "embed"), full, dtype)
+        if not lay.on_model(spec, 0):
+            return table[tokens.long()].to(dtype)
+        v0, vl = lay.model_block(self.cfg.vocab)
+        idx = tokens.long() - v0
+        inside = (idx >= 0) & (idx < vl)
+        rows = table[idx.clamp(0, vl - 1)].to(dtype)
+        rows = torch.where(inside[..., None], rows,
+                           torch.zeros((), dtype=dtype, device=rows.device))
+        return lay.reduce_from_model(rows)
+
+    def active_layout(self):
+        """The active ``parallel.collectives.Layout`` (``WHOLE`` without a
+        ``DeviceMesh``; under one, ``shardings`` checks the families)."""
+        from ..parallel.collectives import layout
+        lay = layout()
+        if lay.mesh is not None:
+            self.shardings(lay)
+        return lay
+
+    def leaf_specs(self, lay) -> list | None:
+        """Each parameter leaf's spec under ``lay``, in ``leaves`` order
+        (None for ``WHOLE``)."""
+        if lay.mesh is None:
+            return None
+        from ..optim.adamw import leaves
+        return [s.spec for s in leaves(self.shardings(lay))]
+
+    def shardings(self, lay) -> dict:
+        """``parallel.tree_shardings`` of the full parameter tree under
+        ``lay``'s mesh and rules (from a ``meta`` init, kept for the last
+        layout). Refuses the families whose layout is not ported where the
+        rules split one of their mixers' weights."""
+        if self._plan is None or self._plan[0] is not lay:
+            from ..optim.adamw import leaves
+            from ..parallel.sharding import tree_shardings
+            meta, axes = self.init_with_axes(device="meta")
+            sh = tree_shardings(meta, axes, lay.mesh, lay.rules)
+            for si, seg in enumerate(self.segments):
+                for bi, (mixer, _) in enumerate(seg.pattern):
+                    if mixer in UNPORTED_LAYOUTS and any(
+                            lay.size(m) > 1
+                            for leaf in leaves(sh[f"seg{si}"][f"blk{bi}"]
+                                               [0]["mixer"])
+                            for i in range(len(leaf.spec))
+                            for m in lay.names(leaf.spec, i)):
+                        raise NotImplementedError(
+                            f"the {UNPORTED_LAYOUTS[mixer]} layout is queue "
+                            "1 item 12h-2")
+            self._plan = (lay, sh)
+        return self._plan[1]
 
     def serve_step(self, params, cache, tokens: torch.Tensor, pos: int
                    ) -> tuple[torch.Tensor, dict]:
         """One decode step: tokens [B,1] at position ``pos`` ->
         (logits [B,V], the cache, written in place)."""
         dtype = torch_dtype(self.cfg.dtype)
-        x = params["embed"][tokens.long()].to(dtype)
+        x = self._embed(self.active_layout(), params, tokens, dtype)
         pos_ids = _pos_ids(self.cfg, x.shape[0], 1, int(pos), x.device)
         x, _ = self._run_segments(params, x, pos_ids=pos_ids, cache=cache,
                                   write_pos=int(pos))
@@ -394,50 +494,91 @@ class Model:
 
 # ---------------------------------------------------------------- cache ----
 
+# each cache entry's logical axes (the reference's ``launch/specs.py``
+# ``_CACHE_AXES``); ``cache_leaf_axes`` picks k's and v's split
+CACHE_AXES = {
+    "k": (None, "act_batch", "act_kv_seq", "act_kv_heads", None),
+    "v": (None, "act_batch", "act_kv_seq", "act_kv_heads", None),
+    "kpos": (None, None),
+    "c": (None, "act_batch", "act_kv_seq", None),
+    "k_rope": (None, "act_batch", "act_kv_seq", None),
+    "shift": (None, "act_batch", None),
+    "channel_shift": (None, "act_batch", None),
+    "wkv": (None, "act_batch", "act_heads", None, None),
+    "conv": (None, "act_batch", None, "rnn"),
+    "h": (None, "act_batch", "rnn"),
+}
+
+
+def cache_leaf_axes(key: str, shape, n_model: int) -> tuple:
+    """A cache entry's axes: a ``[n, B, S, KVH, D]`` k or v splits its kv
+    heads over ``model`` where they divide it (attention is then local to
+    the rank), else its positions (context parallel)."""
+    if key in ("k", "v") and len(shape) == 5:
+        if shape[3] % n_model == 0:
+            return (None, "act_batch", None, "act_kv_heads", None)
+        return (None, "act_batch", "act_kv_seq", None, None)
+    return CACHE_AXES[key]
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                device=None) -> dict:
     """Decode cache (stacked leading dim = segment repeats) on ``device``
-    (default: the CUDA card), the reference's entries
-    (``src/repro/models/lm.py:315-362``)."""
+    (default: the CUDA card; ``"meta"`` for shapes alone), the reference's
+    entries (``src/repro/models/lm.py:315-362``). Under a ``DeviceMesh``
+    (``parallel.set_mesh_rules``) each entry is this rank's block of the
+    ``batch``-row cache, split by ``cache_leaf_axes``."""
+    from ..parallel.collectives import layout
+    from ..parallel.sharding import logical_sharding
     check_ported(cfg)
-    device = resolve_device(device)
+    lay = layout()
+    device = (torch.device("meta") if str(device) == "meta"
+              else resolve_device(device))
     dtype = torch_dtype(cfg.dtype)
     hd = cfg.resolved_head_dim
-    kvh = (cfg.kv_replicate_to
-           if cfg.kv_replicate_to > cfg.n_kv_heads
-           and cfg.kv_replicate_to % cfg.n_kv_heads == 0
-           else cfg.n_kv_heads)
+    kvh = cache_kv_heads(cfg)
 
-    def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
+    def make(key, shape, dt=dtype, fill=0):
+        if lay.mesh is not None:
+            axes = cache_leaf_axes(key, shape, lay.size("model"))
+            sh = logical_sharding(axes, shape, lay.mesh, lay.rules)
+            if key in ("k", "v") and len(shape) == 5 and not any(
+                    sh.spec[2:4] if len(sh.spec) > 2 else ()):
+                if lay.size("model") > 1:
+                    raise ValueError(f"a {shape} {key} cache splits neither "
+                                     "its kv heads nor its positions over "
+                                     f"{lay.size('model')} model ranks")
+            shape = sh.shard_shape(shape)
+        return torch.full(shape, fill, dtype=dt, device=device)
 
     def entry(n: int, mixer: str, mlpk: str) -> dict:
         if mixer == "mla":
-            e = {"c": zeros(n, batch, max_seq, cfg.kv_lora),
-                 "k_rope": zeros(n, batch, max_seq, cfg.rope_head_dim)}
+            e = {"c": make("c", (n, batch, max_seq, cfg.kv_lora)),
+                 "k_rope": make("k_rope", (n, batch, max_seq,
+                                           cfg.rope_head_dim))}
         elif mixer == "wattn":
             # the window's own KV heads: kv_replicate_to widens only gqa
             w = cfg.window
-            e = {"k": zeros(n, batch, w, cfg.n_kv_heads, hd),
-                 "v": zeros(n, batch, w, cfg.n_kv_heads, hd),
-                 "kpos": torch.full((n, w), EMPTY_POS, dtype=torch.int32,
-                                    device=device)}
+            e = {"k": make("k", (n, batch, w, cfg.n_kv_heads, hd)),
+                 "v": make("v", (n, batch, w, cfg.n_kv_heads, hd)),
+                 "kpos": make("kpos", (n, w), torch.int32, EMPTY_POS)}
         elif mixer == "rwkv":
             hs = cfg.rwkv_head_size
             e = {"time": {
-                "shift": zeros(n, batch, cfg.d_model, dt=torch.float32),
-                "wkv": zeros(n, batch, cfg.d_model // hs, hs, hs,
-                             dt=torch.float32)}}
+                "shift": make("shift", (n, batch, cfg.d_model),
+                              torch.float32),
+                "wkv": make("wkv", (n, batch, cfg.d_model // hs, hs, hs),
+                            torch.float32)}}
         elif mixer == "rglru":
-            e = {"conv": zeros(n, batch, cfg.conv_width - 1, cfg.rnn_width,
-                               dt=torch.float32),
-                 "h": zeros(n, batch, cfg.rnn_width, dt=torch.float32)}
+            e = {"conv": make("conv", (n, batch, cfg.conv_width - 1,
+                                       cfg.rnn_width), torch.float32),
+                 "h": make("h", (n, batch, cfg.rnn_width), torch.float32)}
         else:
-            e = {"k": zeros(n, batch, max_seq, kvh, hd),
-                 "v": zeros(n, batch, max_seq, kvh, hd)}
+            e = {"k": make("k", (n, batch, max_seq, kvh, hd)),
+                 "v": make("v", (n, batch, max_seq, kvh, hd))}
         if mlpk == "rwkv_cm":
-            e["channel_shift"] = zeros(n, batch, cfg.d_model,
-                                       dt=torch.float32)
+            e["channel_shift"] = make("channel_shift", (n, batch, cfg.d_model),
+                                      torch.float32)
         return e
 
     return {f"seg{si}": {f"blk{bi}": entry(seg.repeats, mixer, mlpk)

@@ -50,27 +50,44 @@ def adamw_init(params: Any) -> AdamWState:
                       v=_map(torch.zeros_like, params))
 
 
-def global_norm(grads: list) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+def global_norm(grads: list, specs: list | None = None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+
+    ``specs`` (each leaf's spec, under an active ``DeviceMesh``): the leaves
+    are this rank's blocks, and each leaf's sum of squares is summed over
+    the mesh dims that split it and counted once over those that replicate
+    it, so every rank gets the reference's norm of the whole gradient."""
+    from ..parallel.collectives import all_reduce_, layout
+    lay = layout()
+    by_dims: dict = {}
+    for i, g in enumerate(grads):
+        dims = () if specs is None else tuple(sorted(lay.split_dims(
+            specs[i])))
+        part = torch.sum(torch.square(g.float()))
+        by_dims[dims] = by_dims[dims] + part if dims in by_dims else part
     total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    for g in grads:
-        total = total + torch.sum(torch.square(g.float()))
+    for dims in sorted(by_dims):
+        part = by_dims[dims].reshape(1).contiguous()
+        for m in dims:
+            all_reduce_(part, lay.group(m))
+        total = total + part[0]
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params: Any, *, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, clip_norm: float = 1.0
-                 ) -> tuple[Any, AdamWState]:
+                 weight_decay: float = 0.1, clip_norm: float = 1.0,
+                 specs: list | None = None) -> tuple[Any, AdamWState]:
     """One AdamW step (``src/repro/optim/adamw.py:31-56``). ``grads`` is a
     tree shaped like ``params`` or the list of its leaves in ``leaves``
     order; ``lr`` a float or a function of the new step (an int32 scalar
-    tensor)."""
+    tensor). Under a mesh, ``specs`` are the leaves' specs (``global_norm``)
+    and the update runs on this rank's blocks."""
     p_leaves = leaves(params)
     g_leaves = grads if isinstance(grads, list) else leaves(grads)
     m_leaves, v_leaves = leaves(state.m), leaves(state.v)
-    gnorm = global_norm(g_leaves)
+    gnorm = global_norm(g_leaves, specs)
     scale = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     step = state.step + 1
     stepf = step.float()

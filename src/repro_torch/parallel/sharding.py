@@ -119,16 +119,33 @@ def set_mesh_rules(mesh, overrides: dict[str, tuple[str, ...]] | None = None):
     return ctx()
 
 
+def bound(fn):
+    """``fn`` run under the mesh and rules active now, on whatever thread
+    calls it. The active mesh is thread-local, and on the card the autograd
+    engine runs the backward pass, remat's recomputed forward included, on
+    a thread of its own."""
+    cfg = getattr(_state, "cfg", None)
+
+    def run(*a, **kw):
+        prev = getattr(_state, "cfg", None)
+        _state.cfg = cfg
+        try:
+            return fn(*a, **kw)
+        finally:
+            _state.cfg = prev
+    return run
+
+
 def fsdp_rules(multi_pod: bool) -> dict[str, tuple[str, ...]]:
     """ZeRO-3-style: shard every weight's embed dim over the batch axes."""
     return {"embed": ("pod", "data") if multi_pod else ("data",)}
 
 
 def expert_parallel_rules() -> dict[str, tuple[str, ...]]:
-    """The overrides a multi-rank run of the port's ``Model`` places its
-    parameters with: only ``expert`` stays on ``model``. The port's forward
-    has no tensor parallelism, so heads, kv_heads, mlp, vocab and rnn,
-    which ``LOGICAL_RULES`` put on ``model`` for GSPMD, stay whole."""
+    """Overrides that leave only ``expert`` on ``model``: heads, kv_heads,
+    mlp, vocab and rnn, which ``LOGICAL_RULES`` put on ``model``, stay
+    whole, and the layout (``parallel.collectives``) runs no tensor
+    parallelism, only the expert-parallel MoE."""
     return {ax: () for ax, mesh in LOGICAL_RULES.items()
             if "model" in mesh and ax != "expert"
             and not ax.startswith("act_")}
@@ -252,7 +269,8 @@ def logical_sharding(axes: Sequence[str | None], shape: Sequence[int], mesh,
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
     """``x`` as it is. The reference's ``with_sharding_constraint`` is a
     hint to GSPMD; the port places tensors explicitly (``shard_tree``) and
-    its collectives are written where they run (the expert-parallel MoE)."""
+    its collectives are written where they run (``parallel.collectives``,
+    called by the layers)."""
     return x
 
 

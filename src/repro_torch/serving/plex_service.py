@@ -1660,7 +1660,9 @@ class PlexService:
 
         Full blocks launch at once (asynchronously); a remainder launches
         once the oldest queued query has waited ``max_delay_s``, by a timer
-        thread if no further call comes. On the per-shard and routed paths
+        thread if no further call comes; that timer also drains every
+        launched block, so tickets fill with no further call. On the
+        per-shard and routed paths
         the ticket is filled at once. With ``max_queue > 0`` a submit that
         would pass the bound is refused: ``overflow="reject"`` raises
         ``QueueFullError``, ``"shed"`` returns a ticket carrying it."""
@@ -1707,9 +1709,13 @@ class PlexService:
             if self._q_len:
                 age = now - self._q_chunks[0][3]
                 if age >= self.max_delay_s:
+                    # an older chunk's timer is pending: it drains these
                     self._flush_partial(st)
                 else:
                     self._arm_timer(self.max_delay_s - age)
+            else:
+                # the queries filled whole blocks: the timer drains them
+                self._arm_timer(self.max_delay_s)
         return None
 
     def _arm_timer(self, delay_s: float) -> None:
@@ -1729,16 +1735,18 @@ class PlexService:
 
     def _deadline_flush(self) -> None:
         """Timer thread: launch and drain the queued remainder once its
-        deadline has passed (re-arm when woken early). A failure is parked
-        on the tickets it concerns and logged here."""
+        deadline has passed (re-arm when woken early), and drain the blocks
+        a submit launched after the timer was armed. A failure is parked on
+        the tickets it concerns and logged here."""
         with self._on_device(), self._lock:
             self._timer = None
-            if not self._q_len:
+            if not (self._q_len or self._outstanding):
                 return
-            age = time.monotonic() - self._q_chunks[0][3]
-            if age < self.max_delay_s:
-                self._arm_timer(self.max_delay_s - age)
-                return
+            if self._q_len:
+                age = time.monotonic() - self._q_chunks[0][3]
+                if age < self.max_delay_s:
+                    self._arm_timer(self.max_delay_s - age)
+                    return
             try:
                 self._flush_queue()
                 self._drain_outstanding()

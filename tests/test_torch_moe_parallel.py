@@ -14,13 +14,14 @@ a rank) go through
   the gradient of ``sum(y * cot) + aux`` for every parameter and ``x``;
 * the port on 4 gloo ranks (``run_ranks``) as (2, 2) and (1, 4), each rank
   holding its blocks by the port's rules (``x`` over ``data``, the experts
-  over ``model``), with the same loss on its slice of ``y``.
+  over ``model``, the shared MLP tensor-parallel over ``model`` on its
+  ``mlp`` dim), with the same loss on its slice of ``y``.
 
 At capacity factor 8 no pair drops; at 1.0 the per-rank capacity is 128
 slots, and 82 (2, 2) or 1,024 (1, 4: 1,024 tokens a rank) of the 2,048
 (token, slot) pairs drop. ``idx`` and ``keep`` must be equal, rank for rank. ``y``,
 ``aux`` and the gradients (``x``'s per rank; the router's, the shared
-MLP's and the experts' summed over the batch ranks, the caller's
+MLP's block and the experts' summed over the batch ranks, the caller's
 data-parallel reduction) in float32 within 1e-5 of each tensor's largest
 magnitude. The port also runs the expert-parallel body on one rank (a
 (1, 1) mesh), where it must equal the gspmd path bit for bit, forward and
@@ -163,7 +164,10 @@ def main(shape, factors):
             "router": ("embed", None),
             "w_gate": ("expert", "embed", "expert_mlp"),
             "w_up": ("expert", "embed", "expert_mlp"),
-            "w_down": ("expert", "expert_mlp", "embed")}
+            "w_down": ("expert", "expert_mlp", "embed"),
+            "shared/wi_gate": ("embed", "mlp"),
+            "shared/wi_up": ("embed", "mlp"),
+            "shared/wo": ("mlp", "embed")}
     local = {k: torch.from_numpy(np.array(logical_sharding(
         axes.get(k, ()), v.shape, mesh).local(v))) for k, v in data.items()}
     x, cot = local.pop("x"), local.pop("cot")
@@ -308,9 +312,9 @@ def test_output_and_aux_match(runs, shape, cf):
 @pytest.mark.parametrize("shape", MESHES)
 def test_every_gradient_matches(runs, shape, cf):
     """``x``'s gradient on each rank is its slice of the reference's; the
-    router's and the shared MLP's, summed over the batch ranks, the
-    reference's on every model rank; a model rank's experts', summed over
-    the batch ranks, its experts' slice."""
+    router's, summed over the batch ranks, the reference's on every model
+    rank; a model rank's experts' and its block of the shared MLP's, summed
+    over the batch ranks, their slices."""
     dims, ref, port = _load(runs, shape, cf)
     rows, e_loc = BATCH // dims[0], 16 // dims[1]
     names = [k for k in ref if k.startswith("g/")]
@@ -326,6 +330,10 @@ def test_every_gradient_matches(runs, shape, cf):
             want = ref[k]
             if k in ("g/w_gate", "g/w_up", "g/w_down"):
                 want = want[m * e_loc:(m + 1) * e_loc]
+            if k.startswith("g/shared/"):       # the mlp dim over model
+                f = 64 // dims[1]
+                want = (want[m * f:(m + 1) * f] if k.endswith("wo")
+                        else want[:, m * f:(m + 1) * f])
             _close(got, want, (k, m))
 
 

@@ -113,6 +113,44 @@ def test_background_deadline_flush_fills_tickets(rng):
     assert svc.stats.inflight_batches == 0
 
 
+def _wait_filled(tickets, timeout_s=5.0):
+    deadline = time.monotonic() + timeout_s
+    while (any(t._filled < t.n for t in tickets)
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+    return all(t._filled == t.n for t in tickets)
+
+
+def test_deadline_timer_drains_whole_blocks(rng):
+    """A submit that fills whole blocks leaves nothing queued: the timer
+    still drains the launched blocks, with no further call."""
+    keys = np.unique(rng.integers(0, 1 << 62, 10_000, dtype=np.uint64))
+    svc = _svc(keys, max_delay_s=0.05)
+    svc.warmup()
+    t = svc.submit(keys[:1024])                 # two blocks of 512
+    assert _wait_filled([t]), "launched blocks left undrained"
+    assert np.array_equal(t.result(), np.arange(1024))
+    assert svc.stats.inflight_batches == 0
+
+
+def test_deadline_timer_drains_a_late_submits_flush(rng):
+    """The timer fires while a submit holds the lock; that submit finds the
+    queued remainder past its deadline and launches it itself. The pending
+    timer then finds the queue empty and must still drain the launches."""
+    keys = np.unique(rng.integers(0, 1 << 62, 10_000, dtype=np.uint64))
+    svc = _svc(keys, max_delay_s=0.05)
+    svc.warmup()
+    with svc._lock:
+        t1 = svc.submit(keys[:100])             # arms the timer
+        time.sleep(0.2)                         # it fires, waits on the lock
+        t2 = svc.submit(keys[100:200])          # past the deadline: launches
+        assert svc._q_len == 0 and svc.stats.inflight_batches == 1
+    assert _wait_filled([t1, t2]), "the pending timer did not drain"
+    assert np.array_equal(t1.result(), np.arange(100))
+    assert np.array_equal(t2.result(), np.arange(100, 200))
+    assert svc.stats.inflight_batches == 0
+
+
 def test_drain_cancels_timer(rng):
     keys = np.unique(rng.integers(0, 1 << 62, 5_000, dtype=np.uint64))
     svc = _svc(keys, max_delay_s=30.0)
