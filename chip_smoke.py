@@ -76,8 +76,9 @@ card, then drives the port's three paths:
   plain version with tensor-core scores and through the plain version, and
   its first rows held to float64; then timed again unrecorded) and a
   float32 check of prefill against token-by-token decode (``lm_prefill``);
-  then the ``ServeEngine`` over ten requests whose position groups split
-  (``lm_serve``);
+  then the ``ServeEngine`` over ten requests whose position groups split,
+  at the model's first ``ENGINE_LAYERS`` layers, and the whole model's
+  decode step profiled (``lm_serve``);
 * the MoE family (``lm_moe``): deepseek-v2 at full width cut to 3 layers
   (MLA, the dense layer 0 and two MoE layers of 160 experts), a 4,096-token
   bf16 prefill (the MLA attention's share from CUDA events; each MoE
@@ -88,7 +89,8 @@ card, then drives the port's three paths:
   width and depth, a 32,768-token prefill with one K5 launch a layer, all
   on the Hopper kernel (the first and last replayed through the plain
   version, K5 timed at that shape beside SDPA), the same float32 check and
-  the engine;
+  the engine (every engine but minitron's runs the model's first
+  ``ENGINE_LAYERS`` layers, a ``reduced`` line);
 * a model over a device mesh (``lm_parallel``, on the qwen2-moe
   parameters that ``lm_moe`` drew): a one-rank NCCL process group and
   ``make_local_mesh``'s (1, 1) mesh, a 4,096-token bf16 prefill through
@@ -119,6 +121,17 @@ card, then drives the port's three paths:
   plain version; qwen2-vl-2b at full width and depth, a 32,768-token
   prefill with 256 patch embeddings (one K5 launch a layer), the float32
   prefill-against-decode check and the engine;
+* the MLA, RWKV6 and RG-LRU layouts (``lm_layout_families``, run inside
+  ``lm_moe`` and ``lm_recurrent`` on the models they hold, and timed as a
+  phase of its own): deepseek-v2's 4,096-token prefill (MLA, the dense
+  layer and the gspmd MoE over the mesh), rwkv6's 32,768-token prefill and
+  recurrentgemma's at one pattern of 3 layers through the production layout
+  on a one-rank NCCL group and (1, 1) mesh, each held bit for bit to the
+  unsharded prefill (logits, hidden states, logits at 256 positions), 8
+  decode steps through the layout's cache bit for bit the unsharded ones
+  (deepseek-v2's naive and absorbed decodes, recurrentgemma's across the
+  wrap of its ring), the collectives as the dry run counts them and its
+  predicted peak within 25% of the card's;
 * the production layout: minitron-4b's 32,768-token prefill
   (``lm_layout_prefill``, after ``lm_serve``) and qwen2-moe's 4,096-token
   one (inside ``lm_parallel``) through ``parallel.collectives`` over a
@@ -3559,17 +3572,28 @@ def lm_prefill_check(device, cfg32, params, tokens,
 
 def phase_lm_serve(device, seed: int, model, params,
                    prompt: int = 64, max_new: int = 32) -> dict:
-    """The port's ``ServeEngine`` at full width: batch 4, max_seq 512,
-    8 requests of ``prompt`` tokens and ``max_new`` new ones, and two of
-    other lengths (one short, queued fourth, one long, queued last), so
-    slots retire at different steps, later requests are admitted beside
-    sequences in flight and the position groups split. Every request must
-    finish, the page table must map its pages, and ``kv_store.fetch`` must
-    return the swapped KV exactly."""
+    """The port's ``ServeEngine`` at full width over the model's first
+    ``ENGINE_LAYERS`` layers: batch 4, max_seq 512, 8 requests of
+    ``prompt`` tokens and ``max_new`` new ones, and two of other lengths
+    (one short, queued fourth, one long, queued last), so slots retire at
+    different steps, later requests are admitted beside sequences in
+    flight and the position groups split. Every request must finish, the
+    page table must map its pages, and ``kv_store.fetch`` must return the
+    swapped KV exactly. Then ``profile_serve_step`` of the whole model."""
+    from repro_torch.models import Model
     from repro_torch.serving import ServeEngine
     from repro_torch.serving.engine import Request
     rng = np.random.default_rng(seed + 5)
     vocab = model.cfg.vocab
+    whole = model
+    if model.cfg.n_layers > ENGINE_LAYERS:
+        emit("reduced", lm_arch=model.cfg.name, engine_layers=ENGINE_LAYERS,
+             of=model.cfg.n_layers, why="the engine's checks (position "
+             "groups that split, admissions beside sequences in flight, "
+             "swapped KV fetched exactly) hold at every depth, and its "
+             "host-bound steps cost about the same a layer; the decode step "
+             "of the whole model is profiled after it")
+        model = Model(dataclasses.replace(model.cfg, n_layers=ENGINE_LAYERS))
     lengths = [(prompt, max_new)] * 3 + [(prompt // 4, max_new // 4)] + \
         [(prompt, max_new)] * 5 + [(prompt * 5 // 8, max_new * 3 // 2)]
     eng = ServeEngine(model, params, batch_size=LM_SERVE_BATCH,
@@ -3617,10 +3641,11 @@ def phase_lm_serve(device, seed: int, model, params,
     check(len(eng.kv_store.table) == pages, "page table misses pages")
     check(calls["sub_batches"] > 0, "no position group split")
     lat = [done_at[s] * 1e3 for s in range(len(lengths))]
-    emit("lm_serve_profile", **profile_serve_step(device, model, params))
+    emit("lm_serve_profile", **profile_serve_step(device, whole, params))
     generated = sum(m for _, m in lengths)
     out = dict(requests=len(lengths), batch=LM_SERVE_BATCH,
-               max_seq=LM_SERVE_MAX_SEQ, engine_steps=eng.steps,
+               max_seq=LM_SERVE_MAX_SEQ, n_layers=model.cfg.n_layers,
+               engine_steps=eng.steps,
                serve_step_calls=calls["steps"],
                sub_batch_calls=calls["sub_batches"], run_s=run_s,
                generated_tokens=generated,
@@ -3681,6 +3706,7 @@ MOE_QWEN = "qwen2-moe-a2.7b"
 DEEPSEEK_LAYERS = 3            # the dense layer 0 and two MoE layers
 DEEPSEEK_PREFILL_SEQ = 4096    # the plain MLA attention's scores, below
 ALIGNED_REQUESTS = 8
+ENGINE_LAYERS = 3              # serve_aligned's depth: one layer pattern
 # what the qwen2-moe prefill of 32,768 tokens needs beside its weights:
 # the MoE dispatch (about 3 GB), two recorded K5 launches and their
 # replays, SDPA's copies and the allocator's slack
@@ -3792,13 +3818,13 @@ def share_of_prefill(device, prefill, params, tokens, layer: str,
 
 
 def prefill_main_path(device, cfg, prefill, params, tokens,
-                      batch=None) -> dict:
+                      batch=None, keep: dict | None = None) -> dict:
     """The main path of one model: a bf16 prefill through
     ``make_prefill_step`` of ``{"tokens": tokens}`` (or ``batch``: frames,
     patch embeddings), K5's count set to 0 just before and read just
     after; the kernel each launch took (by q's dtype), time to first token,
     peak memory and each MoE layer's routing (none for a model without
-    MoE layers)."""
+    MoE layers). ``keep["logits"]`` takes the prefill's logits."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     batch = batch if batch is not None else {"tokens": tokens}
@@ -3814,6 +3840,8 @@ def prefill_main_path(device, cfg, prefill, params, tokens,
     check(tuple(logits.shape) == (1, cfg.vocab)
           and bool(torch.isfinite(logits.float()).all()),
           f"{cfg.name}: prefill logits not finite or misshapen")
+    if keep is not None:
+        keep["logits"] = logits
     seq = next(iter(batch.values())).shape[1]
     return dict(seq=seq, batch=1, ttft_s=ttft_s,
                 prefill_tokens_per_s=seq / ttft_s, k5_launches=launches,
@@ -3861,16 +3889,25 @@ def checked_admissions(eng) -> dict:
 
 def serve_aligned(device, seed: int, model, params, prompt: int,
               max_new: int) -> dict:
-    """``ServeEngine`` at batch 4, max_seq 512: 8 aligned requests of
-    ``prompt`` tokens and ``max_new`` new ones, the second four in the
-    slots the first four used (``checked_admissions``). Every request
-    finishes with its tokens, and the page table returns each swapped page
-    exactly (MLA: the latent ``c``; a recurrent first block swaps
-    nothing); the absorbed MLA decode is counted where the config asks for
-    it."""
+    """``ServeEngine`` at batch 4, max_seq 512, over the model's first
+    ``ENGINE_LAYERS`` layers: 8 aligned requests of ``prompt`` tokens and
+    ``max_new`` new ones, the second four in the slots the first four used
+    (``checked_admissions``). Every request finishes with its tokens, and
+    the page table returns each swapped page exactly (MLA: the latent
+    ``c``; a recurrent first block swaps nothing); the absorbed MLA decode
+    is counted where the config asks for it."""
     from repro_torch.layers import mla as M
+    from repro_torch.models import Model
     from repro_torch.serving import ServeEngine
     from repro_torch.serving.engine import Request
+    if model.cfg.n_layers > ENGINE_LAYERS:
+        emit("reduced", lm_arch=model.cfg.name, engine_layers=ENGINE_LAYERS,
+             of=model.cfg.n_layers, why="the engine's checks (admissions "
+             "into used slots, fresh recurrent rows and ring rows, swapped "
+             "pages, the absorbed decode) hold at every depth, and its "
+             "host-bound decode steps cost about the same a layer; "
+             "minitron's engine (lm_serve) keeps its full depth")
+        model = Model(dataclasses.replace(model.cfg, n_layers=ENGINE_LAYERS))
     rng = np.random.default_rng(seed + 7)
     vocab = model.cfg.vocab
     eng = ServeEngine(model, params, batch_size=LM_SERVE_BATCH,
@@ -3973,12 +4010,19 @@ def lm_moe_deepseek(device, seed: int, cfg, seq: int, prompt: int,
                            device=device)
     _, warm_s = timed(lambda: prefill(params, {"tokens": tokens[:, :256]}),
                       device)
+    main = {}
     out = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
                init_s=init_s, warmup_s=warm_s,
-               **prefill_main_path(device, cfg, prefill, params, tokens))
+               **prefill_main_path(device, cfg, prefill, params, tokens,
+                                   keep=main))
     # the attention's share of a second prefill, device time on both sides
     out.update(share_of_prefill(device, prefill, params, tokens, "mla",
                                 cfg.n_layers))
+    # the MLA layout and the gspmd MoE over the mesh (lm_layout_families)
+    out["layout"] = layout_family(
+        device, cfg, params, tokens, main.pop("logits"), decodes=(
+            ("naive", dataclasses.replace(cfg, mla_absorb=False), 0),
+            ("absorbed", dataclasses.replace(cfg, mla_absorb=True), 0)))
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     few = tokens[:, :LM_CHECK_TOKENS]
     out["check_naive"], dec_naive = lm_prefill_check(
@@ -4121,6 +4165,27 @@ def start_process_group(backend: str, device) -> str:
         backend, init_method=f"file://{tmp}/store", rank=0, world_size=1,
         **({"device_id": device} if device.type == "cuda" else {}))
     return tmp
+
+
+class one_rank_mesh:
+    """A one-rank process group (NCCL on the card) and ``make_local_mesh``'s
+    (1, 1) mesh over it; the group is destroyed on exit."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        from repro_torch.launch.mesh import make_local_mesh
+        self.pg_dir = start_process_group(
+            "nccl" if self.device.type == "cuda" else "gloo", self.device)
+        return make_local_mesh(self.device.type)
+
+    def __exit__(self, *exc):
+        import shutil
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        shutil.rmtree(self.pg_dir, ignore_errors=True)
+        return False
 
 
 def grad_agreement(want: list, got: list) -> dict:
@@ -4450,23 +4515,14 @@ def phase_lm_layout_prefill(device, seed: int, model, params,
     """minitron-4b's ``lm_prefill`` tokens (the same generator) through
     ``layout_prefill`` over a one-rank process group (NCCL on the card) and
     its (1, 1) mesh."""
-    import shutil
     import torch
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import make_local_mesh
     cfg = model.cfg
     gen = torch.Generator(device=device).manual_seed(seed + 4)
     tokens = torch.randint(0, cfg.vocab, (1, seq), generator=gen,
                            device=device)
-    pg_dir = start_process_group("nccl" if device.type == "cuda" else "gloo",
-                                 device)
-    try:
-        return layout_prefill(device, cfg, params, tokens,
-                              make_local_mesh(device.type),
+    with one_rank_mesh(device) as mesh:
+        return layout_prefill(device, cfg, params, tokens, mesh,
                               "lm_layout_prefill")
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(pg_dir, ignore_errors=True)
 
 
 def layout_train_step(device, model, params, opt, batch, lr: float) -> dict:
@@ -4474,17 +4530,11 @@ def layout_train_step(device, model, params, opt, batch, lr: float) -> dict:
     ``train_main_path`` trained (a one-rank process group, (1, 1) mesh,
     ``LOGICAL_RULES`` + ``fsdp_rules``): its time, peak (``step_peak``),
     K5 launches and collectives, for the dry run's prediction."""
-    import shutil
-    import torch.distributed as dist
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.steps import make_train_step
     from repro_torch.parallel import fsdp_rules, set_mesh_rules
     from repro_torch.parallel.collectives import LOG
-    pg_dir = start_process_group("nccl" if device.type == "cuda" else "gloo",
-                                 device)
-    try:
-        mesh = make_local_mesh(device.type)
+    with one_rank_mesh(device) as mesh:
         step = make_train_step(model, lr=lr)
         held = _nbytes(params) + _nbytes([opt.step, opt.m, opt.v]) + \
             _nbytes(list(batch.values()))
@@ -4498,9 +4548,6 @@ def layout_train_step(device, model, params, opt, batch, lr: float) -> dict:
         out = dict(loss=float(loss), seconds=sec, k5_launches=FA.launches,
                    collectives=LOG.as_dict(), max_memory_allocated_step=peak,
                    held_bytes=held)
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(pg_dir, ignore_errors=True)
     check(bool(np.isfinite(out["loss"])), f"the layout's train step's loss "
           f"is {out['loss']}")
     return out
@@ -4572,7 +4619,8 @@ def recurrent_prefill(device, seed: int, cfg, seq: int) -> tuple:
     device) and the main path of its bf16 prefill of ``seq`` tokens
     (``prefill_main_path``; no K5 launch may run, since neither the
     recurrences nor the windowed attention are K5's function). Returns the
-    record, the prefill step, the model, its weights and the tokens."""
+    record, the prefill step, the model, its weights, the tokens and the
+    prefill's logits."""
     import torch
     from repro_torch.configs import SHAPES
     from repro_torch.models.steps import make_prefill_step
@@ -4586,12 +4634,14 @@ def recurrent_prefill(device, seed: int, cfg, seq: int) -> tuple:
                            device=device)
     _, warm_s = timed(lambda: prefill(params, {"tokens": tokens[:, :256]}),
                       device)
+    main = {}
     out = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
                init_s=init_s, warmup_s=warm_s,
-               **prefill_main_path(device, cfg, prefill, params, tokens))
+               **prefill_main_path(device, cfg, prefill, params, tokens,
+                                   keep=main))
     check(out["k5_launches"] == 0 and out["k5_calls"] == 0,
           f"{cfg.name}: {out['k5_calls']} K5 calls in the prefill")
-    return out, prefill, model, params, tokens
+    return out, prefill, model, params, tokens, main["logits"]
 
 
 def lm_recurrent_rwkv(device, seed: int, cfg, seq: int, prompt: int,
@@ -4599,10 +4649,14 @@ def lm_recurrent_rwkv(device, seed: int, cfg, seq: int, prompt: int,
     """rwkv6: the bf16 prefill (the main path), again with CUDA events
     around each layer's chunked WKV for its share; the float32
     prefill-against-decode check at full depth; ``ServeEngine``."""
-    out, prefill, model, params, tokens = recurrent_prefill(device, seed,
-                                                            cfg, seq)
+    out, prefill, model, params, tokens, logits = recurrent_prefill(
+        device, seed, cfg, seq)
     out.update(share_of_prefill(device, prefill, params, tokens, "rwkv",
                                 cfg.n_layers, "_wkv_chunked", "wkv"))
+    # the RWKV6 layout (lm_layout_families)
+    out["layout"] = layout_family(device, cfg, params, tokens, logits,
+                                  decodes=(("decode", cfg, 0),))
+    del logits
     out["check"], _ = lm_prefill_check(
         device, dataclasses.replace(cfg, dtype="float32"), params,
         tokens[:, :LM_CHECK_TOKENS], phase="lm_recurrent_check")
@@ -4621,11 +4675,25 @@ def lm_recurrent_griffin(device, seed: int, cfg, seq: int, prompt: int,
     which leaves the ring at its KV heads)."""
     from repro_torch.configs.registry import with_production
     from repro_torch.models import Model
-    out, prefill, model, params, tokens = recurrent_prefill(device, seed,
-                                                            cfg, seq)
+    out, prefill, model, params, tokens, logits = recurrent_prefill(
+        device, seed, cfg, seq)
     wattn = sum(cfg.layer_kind(i)[0] == "wattn" for i in range(cfg.n_layers))
     out.update(share_of_prefill(device, prefill, params, tokens,
                                 "attention", wattn))
+    del logits
+    # the RG-LRU and windowed-attention layouts (lm_layout_families), at
+    # one pattern of layers: the decode crosses the ring's wrap at its
+    # fifth step
+    cut = dataclasses.replace(cfg, n_layers=min(RING_CHECK_LAYERS,
+                                                cfg.n_layers))
+    emit("reduced", lm_arch=cfg.name, layout_layers=cut.n_layers,
+         of=cfg.n_layers, why="the layout's prefill, the unsharded prefill "
+         "it is held to bit for bit, both forwards' hidden states and the "
+         "decodes run one (rglru, rglru, wattn) pattern: every kind of layer "
+         "at full width, for a twelfth of the prefill's time")
+    out["layout"] = layout_family(
+        device, cut, params, tokens, decodes=(
+            ("ring_wrap", cut, cfg.window - FAMILY_DECODE_STEPS // 2),))
     emit("reduced", lm_arch=cfg.name, ring_check_layers=RING_CHECK_LAYERS,
          of=cfg.n_layers, why="the float32 ring-wrap check decodes "
          f"{ring_tokens} tokens one at a time; one (rglru, rglru, wattn) "
@@ -4665,6 +4733,131 @@ def phase_lm_recurrent(device, seed: int, rwkv_cfg=None, griffin_cfg=None,
         torch.cuda.empty_cache()
     out = {"rwkv6": rw, "recurrentgemma": gr}
     emit("lm_recurrent", **out)
+    return out
+
+
+# -------------------------------- the MLA, RWKV6 and RG-LRU layouts ----
+
+FAMILY_DECODE_STEPS = 8        # decode steps through each layout's cache
+
+
+def layout_decode(device, cfg, params, tokens, mesh, over, start: int,
+                  steps: int) -> dict:
+    """``steps`` decode steps of ``tokens`` from position ``start``, through
+    the layout's cache (``init_cache`` under ``mesh``: the rank's blocks)
+    and through the unsharded cache: every step's logits bit for bit."""
+    import contextlib
+    import torch
+    from repro_torch.models import Model, init_cache
+    from repro_torch.parallel import set_mesh_rules
+    model = Model(cfg)
+    out = {}
+    for name in ("layout", "whole"):
+        with (set_mesh_rules(mesh, over) if name == "layout"
+              else contextlib.nullcontext()):
+            cache = init_cache(cfg, 1, start + steps, device=device)
+            out[name] = torch.stack([model.serve_step(
+                params, cache, tokens[:, t:t + 1], start + t)[0]
+                for t in range(steps)])
+    lay, whole = out["layout"], out["whole"]
+    return dict(start=start, steps=steps, dtype=cfg.dtype,
+                equal=bool(torch.equal(lay, whole)),
+                max_abs_diff=float((lay.float() - whole.float()).abs().max()),
+                finite=bool(torch.isfinite(whole.float()).all()))
+
+
+def layout_family(device, cfg, params, tokens, whole_logits=None, *,
+                  decodes=()) -> dict:
+    """``cfg``'s bf16 prefill of ``tokens`` through the production layout
+    (``LOGICAL_RULES`` with ``fsdp_rules``, a one-rank process group and
+    its (1, 1) mesh; ``parallel.collectives``): the main path, K5's count
+    and the collective log at 0 just before and read just after (no K5
+    launch: MLA's, RWKV's and the windowed attention are plain), its time
+    and peak (``step_peak``); its logits must equal ``whole_logits`` (the
+    unsharded main path's; None: an unsharded prefill of ``cfg`` run here)
+    bit for bit. Then the hidden states and the logits at ``LAYOUT_ROWS``
+    positions of a forward through the layout and one without, bit for
+    bit; each of ``decodes`` (``(name, config, start)``) through
+    ``layout_decode``; and ``launch.dryrun.trace_cell`` of the same prefill
+    on a fake (1, 1) mesh, whose predicted peak must lie within
+    ``LAYOUT_PEAK_TOL`` of the card's. ``cfg`` may be a depth cut of the
+    model ``params`` hold (its first layers). -> the record, with its
+    ``seconds``."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.dryrun import fake_mesh, trace_cell
+    from repro_torch.models import Model
+    from repro_torch.models.steps import make_prefill_step
+    from repro_torch.parallel import (LOGICAL_RULES, MeshShape, fsdp_rules,
+                                      set_mesh_rules)
+    from repro_torch.parallel.collectives import LOG
+    t0 = time.perf_counter()
+    over = fsdp_rules(False)
+    model = Model(cfg)
+    step = make_prefill_step(model)
+    batch = {"tokens": tokens}
+    if whole_logits is None:
+        whole_logits = step(params, batch)
+    # the arguments the step reads: the weights of cfg's layers, the tokens
+    held = _nbytes(model.init(device="meta")) + _nbytes(tokens)
+    seq = tokens.shape[1]
+    with one_rank_mesh(device) as mesh:
+        def run(b):
+            with set_mesh_rules(mesh, over):
+                return step(params, b)
+        run({"tokens": tokens[:, :256]})
+        # ---- the main path: the layout's prefill, counted
+        FA.launches = 0
+        LOG.reset()
+        logits, sec, peak = step_peak(device, lambda: run(batch), held)
+        launches, coll, tags = FA.launches, LOG.as_dict(), dict(LOG.tags)
+        # ---- end of the main path
+        prefill_equal = bool(torch.equal(logits, whole_logits))
+        del logits, whole_logits
+        rows = torch.arange(seq // LAYOUT_ROWS - 1, seq, seq // LAYOUT_ROWS,
+                            device=device)
+        with set_mesh_rules(mesh, over):
+            x_lay, _ = model.forward(params, batch)
+            lay_rows = model.logits(params, x_lay[0, rows])
+        x_whole, _ = model.forward(params, batch)
+        hidden_equal = bool(torch.equal(x_lay, x_whole))
+        rows_equal = bool(torch.equal(lay_rows,
+                                      model.logits(params, x_whole[0, rows])))
+        del x_lay, x_whole
+        dec = {name: layout_decode(device, dcfg, params, tokens, mesh, over,
+                                   start, FAMILY_DECODE_STEPS)
+               for name, dcfg, start in decodes}
+    rules = dict(LOGICAL_RULES, **over)
+    with fake_mesh(MeshShape(("data", "model"), (1, 1))) as fake:
+        t = trace_cell(cfg, ShapeConfig("prefill_32k", seq, 1, "prefill"),
+                       fake, rules, over)
+    pred = t["memory"]["peak_bytes"]
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, seq=seq,
+               mesh={"data": 1, "model": 1},
+               rules="LOGICAL_RULES + fsdp_rules(False)", prefill_s=sec,
+               k5_launches=launches, collectives=coll, tags=tags,
+               prefill_equal=prefill_equal, hidden_equal=hidden_equal,
+               logit_rows_equal=rows_equal, decode=dec,
+               max_memory_allocated_step=peak, held_bytes=held,
+               predicted_peak_bytes=pred, trace_s=t["trace_s"],
+               peak_rel_err=(None if peak is None else (pred - peak) / peak),
+               predicted_collectives=t["collectives"], flops=t["flops"],
+               tflops_per_s=t["flops"] / sec / 1e12)
+    check(launches == 0, f"{cfg.name}: {launches} K5 launches in the "
+          "layout's prefill")
+    check(prefill_equal and hidden_equal and rows_equal
+          and all(d["equal"] and d["finite"] for d in dec.values()),
+          f"{cfg.name}: the layout is not the unsharded model bit for bit: "
+          f"{out}")
+    check(coll == t["collectives"], f"{cfg.name}: the card's collectives "
+          f"{coll} are not the dry run's {t['collectives']}")
+    if device.type == "cuda":
+        check(abs(out["peak_rel_err"]) <= LAYOUT_PEAK_TOL,
+              f"{cfg.name}: the dry run's peak is "
+              f"{out['peak_rel_err']:+.1%} from the card's")
+    out["seconds"] = time.perf_counter() - t0
+    emit("lm_layout_family", **out)
     return out
 
 
@@ -5169,8 +5362,23 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("lm_parallel")
-    phase_lm_recurrent(device, args.seed)
+    recurrent = phase_lm_recurrent(device, args.seed)
     lap("lm_recurrent")
+    # the MLA, RWKV6 and RG-LRU layouts ran inside lm_moe and lm_recurrent,
+    # on the models those phases hold
+    families = {"deepseek_v2": lm_moe["deepseek_v2"]["layout"],
+                "rwkv6": recurrent["rwkv6"]["layout"],
+                "recurrentgemma": recurrent["recurrentgemma"]["layout"]}
+    lap.seconds["lm_moe"] -= families["deepseek_v2"]["seconds"]
+    lap.seconds["lm_recurrent"] -= (families["rwkv6"]["seconds"]
+                                    + families["recurrentgemma"]["seconds"])
+    lap.seconds["lm_layout_families"] = sum(f["seconds"]
+                                            for f in families.values())
+    emit("lm_layout_families", card=info["card"], **{name: {k: f[k] for k in (
+        "arch", "n_layers", "seq", "prefill_s", "k5_launches",
+        "prefill_equal", "hidden_equal", "logit_rows_equal",
+        "decode", "tags", "predicted_peak_bytes", "max_memory_allocated_step",
+        "peak_rel_err", "seconds")} for name, f in families.items()})
     frontends = phase_lm_frontends(device, args.seed)
     lap("lm_frontends")
     train = phase_lm_train(device, args.seed)

@@ -26,9 +26,8 @@ Three counts ride on the step (``StepCounter``):
 There is no ``hlo_extrapolated`` and no probe: XLA counts a while-loop body
 once, so the reference compiles unrolled one- and two-group variants and
 extrapolates. The port runs its layers in a Python loop and counts every
-one. The families whose layout is queue 1 item 12h-2 (MLA, RWKV6 and the
-RG-LRU with its window) get a record of the state a rank holds and
-``"step": "not traced: ..."``.
+one. Every family of the registry traces: a record holds the step's counts
+and, under ``state``, the bytes the rank holds (``state_bytes``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch phi3-mini-3.8b --shape train_4k
@@ -53,7 +52,7 @@ from ..configs import SHAPES, get_config, shape_supported
 from ..configs.base import ArchConfig, ShapeConfig
 from ..configs.registry import ARCH_IDS
 from ..models.init import torch_dtype
-from ..models.lm import UNPORTED_LAYOUTS, Model
+from ..models.lm import Model
 from ..models.steps import (make_prefill_step, make_serve_step,
                             make_train_step)
 from ..optim import AdamWState
@@ -177,16 +176,6 @@ def cell_rules(cfg: ArchConfig, mesh) -> tuple[dict, dict]:
     return dict(LOGICAL_RULES, **overrides), overrides
 
 
-def unported_family(cfg: ArchConfig) -> str | None:
-    """The family name of the first mixer whose layout is queue 1 item
-    12h-2, or None."""
-    for i in range(cfg.n_layers):
-        mixer = cfg.layer_kind(i)[0]
-        if mixer in UNPORTED_LAYOUTS:
-            return UNPORTED_LAYOUTS[mixer]
-    return None
-
-
 def _local_params(cfg: ArchConfig, mesh, rules) -> tuple[dict, dict]:
     """(this rank's parameter blocks on meta, their shardings)."""
     full, axes = Model(cfg).init_with_axes(device="meta")
@@ -294,7 +283,7 @@ def trace_cell(cfg: ArchConfig, shape: ShapeConfig, mesh, rules,
                        "output_size_in_bytes": out_bytes,
                        "peak_bytes": counter.peak,
                        "temp_size_in_bytes": counter.peak - args},
-            "trace_s": time.perf_counter() - t0}
+            "state": st, "trace_s": time.perf_counter() - t0}
 
 
 def _parse_overrides(pairs: list[str]) -> dict:
@@ -345,21 +334,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     }
     if overrides_cfg:
         rec["overrides"] = overrides_cfg
-    family = unported_family(cfg)
-    if family is not None:
-        st = state_bytes(cfg, shape, mshape, rules)
-        rec["step"] = f"not traced: the {family} layout is queue 1 item 12h-2"
-        rec["memory"] = {"argument_size_in_bytes":
-                         st["argument_size_in_bytes"], "hbm_bytes": hbm_bytes}
-        rec["state"] = st
-    else:
-        with fake_mesh(mshape, rank) as mesh:
-            traced = trace_cell(cfg, shape, mesh, rules, overrides)
-        rec["step"] = "traced"
-        rec["flops"], rec["bytes"] = traced["flops"], traced["bytes"]
-        rec["collectives"] = traced["collectives"]
-        rec["memory"] = dict(traced["memory"], hbm_bytes=hbm_bytes)
-        rec["trace_s"] = traced["trace_s"]
+    with fake_mesh(mshape, rank) as mesh:
+        traced = trace_cell(cfg, shape, mesh, rules, overrides)
+    rec["step"] = "traced"
+    rec["flops"], rec["bytes"] = traced["flops"], traced["bytes"]
+    rec["collectives"] = traced["collectives"]
+    rec["memory"] = dict(traced["memory"], hbm_bytes=hbm_bytes)
+    rec["state"] = traced["state"]
+    rec["trace_s"] = traced["trace_s"]
     if save:
         out_dir = pathlib.Path(out_dir or RESULTS)
         out_dir.mkdir(parents=True, exist_ok=True)

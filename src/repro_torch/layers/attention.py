@@ -20,8 +20,10 @@ JAX differentiates: the reference has no backward kernel) under autograd,
 row block reads only the key chunks its rows can see.
 
 Under a ``DeviceMesh`` (``parallel.set_mesh_rules``) ``apply_gqa`` runs on
-this rank's blocks: split query heads with K5 on the local heads, and a
-decode cache split by kv heads or by positions.
+this rank's blocks: split query heads with K5 (or, with a window, the plain
+windowed ``flash_attention``) on the local heads, and a decode cache split
+by kv heads or by positions, whose partial softmax states
+``combine_key_blocks`` joins.
 """
 from __future__ import annotations
 
@@ -169,6 +171,25 @@ def init_gqa(col: "ParamInit", n: int, d_model: int, n_heads: int,
     }
 
 
+def combine_key_blocks(lay, acc: torch.Tensor, m: torch.Tensor,
+                       l: torch.Tensor, split: bool) -> torch.Tensor:
+    """The attention output (float32) from ``flash_attention(...,
+    stats=True)``'s state over this rank's keys. ``split``: the keys are
+    split over ``model`` (context parallel), and the states are joined by
+    the online softmax's exact log-sum-exp combine of key blocks: each
+    rank's weight is ``exp(m - max over ranks)``, 0 for a rank with no
+    visible key. Over one rank every weight is exactly 1, so the output is
+    ``flash_attention``'s own."""
+    if split:
+        from ..parallel.collectives import all_reduce_
+        grp = lay.group("model")
+        top = all_reduce_(m.clone(), grp, "max")
+        w = torch.exp(m - top)
+        l = all_reduce_(l * w, grp)
+        acc = all_reduce_(acc * w[..., None], grp)
+    return acc / torch.clamp_min(l[..., None], 1e-30)
+
+
 def cache_kv_heads(cfg) -> int:
     """The decode cache's kv heads: ``kv_replicate_to`` where it widens the
     kv heads by a whole factor, else ``n_kv_heads`` (the reference's
@@ -189,6 +210,39 @@ def _rope(cfg, pos_ids, hd):
     if cfg.mrope_sections:
         return mrope_cos_sin(pos_ids, hd, cfg.rope_theta, cfg.mrope_sections)
     return rope_cos_sin(pos_ids, hd, cfg.rope_theta)
+
+
+def gqa_projections(lay, p: dict, x: torch.Tensor, cfg, pos_ids, *,
+                    mrope: bool = True):
+    """A GQA block's projections on this rank of ``lay``: (q, k, v rotated,
+    ``wo`` in ``x``'s dtype, whether the query heads and the kv heads split
+    over ``model``). ``x`` enters the split products through
+    ``copy_to_model``; ``mrope`` False rotates by the plain rope even where
+    the config sets M-RoPE sections (the reference's ring decode)."""
+    dtype = x.dtype
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    wq, sq = lay.weight(p["wq"], ("embed", "heads", "head_dim"), (d, h, hd),
+                        dtype)
+    wk, sk = lay.weight(p["wk"], ("embed", "kv_heads", "head_dim"),
+                        (d, kv, hd), dtype)
+    wv, _ = lay.weight(p["wv"], ("embed", "kv_heads", "head_dim"),
+                       (d, kv, hd), dtype)
+    wo, _ = lay.weight(p["wo"], ("heads", "head_dim", "embed"), (h, hd, d),
+                       dtype)
+    q_tp, kv_tp = lay.on_model(sq, 1), lay.on_model(sk, 1)
+    if kv_tp and not q_tp:
+        raise ValueError("kv heads split over model with the query heads "
+                         "whole")
+    xt = lay.copy_to_model(x) if q_tp else x
+    q = torch.einsum("bsd,dhk->bshk", xt, wq)
+    xk = xt if kv_tp else x
+    k = torch.einsum("bsd,dhk->bshk", xk, wk)
+    v = torch.einsum("bsd,dhk->bshk", xk, wv)
+    cos, sin = (_rope(cfg, pos_ids, hd) if mrope
+                else rope_cos_sin(pos_ids, hd, cfg.rope_theta))
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, wo, q_tp, \
+        kv_tp
 
 
 def apply_gqa(p: dict, x: torch.Tensor, cfg, *, pos_ids, cache=None,
@@ -217,44 +271,18 @@ def apply_gqa(p: dict, x: torch.Tensor, cfg, *, pos_ids, cache=None,
     query head, and the partial softmax states are combined over ``model``
     by an exact log-sum-exp (the online softmax's combine of key blocks).
     The new token's k and v go to the rank holding position
-    ``write_pos``. The windowed attention's layout is queue 1 item 12h-2:
-    with a window, a mesh raises."""
-    from ..parallel.collectives import all_reduce_, layout
+    ``write_pos``. A windowed prefill (recurrentgemma's ``wattn``) runs the
+    plain windowed ``flash_attention`` on the rank's heads; its decode goes
+    through the ring (``models.lm._apply_ring_block``)."""
+    from ..parallel.collectives import layout
     lay = layout()
-    if window and lay.mesh is not None:
-        raise NotImplementedError("the windowed attention's layout is queue "
-                                  "1 item 12h-2")
     dtype = x.dtype
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
-        cfg.resolved_head_dim
-    wq, sq = lay.weight(p["wq"], ("embed", "heads", "head_dim"), (d, h, hd),
-                        dtype)
-    wk, sk = lay.weight(p["wk"], ("embed", "kv_heads", "head_dim"),
-                        (d, kv, hd), dtype)
-    wv, _ = lay.weight(p["wv"], ("embed", "kv_heads", "head_dim"),
-                       (d, kv, hd), dtype)
-    wo, _ = lay.weight(p["wo"], ("heads", "head_dim", "embed"), (h, hd, d),
-                       dtype)
-    q_tp, kv_tp = lay.on_model(sq, 1), lay.on_model(sk, 1)
-    if kv_tp and not q_tp:
-        raise ValueError("kv heads split over model with the query heads "
-                         "whole")
-    xt = lay.copy_to_model(x) if q_tp else x
-    q = torch.einsum("bsd,dhk->bshk", xt, wq)
-    xk = xt if kv_tp else x
-    k = torch.einsum("bsd,dhk->bshk", xk, wk)
-    v = torch.einsum("bsd,dhk->bshk", xk, wv)
-    cos, sin = _rope(cfg, pos_ids, q.shape[-1])
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    q, k, v, wo, q_tp, kv_tp = gqa_projections(lay, p, x, cfg, pos_ids)
     n = lay.size("model")
     h0, hl = lay.model_block(h) if q_tp else (0, h)
 
     if cache is None:
-        if window:
-            out = flash_attention(q, k, v, causal=causal, q_offset=0,
-                                  window=window)
-            return torch.einsum("bshk,hkd->bsd", out, wo), None
         g = h // kv
         if q_tp and not kv_tp:
             kv0, kv1 = h0 // g, (h0 + hl - 1) // g + 1
@@ -264,7 +292,11 @@ def apply_gqa(p: dict, x: torch.Tensor, cfg, *, pos_ids, cache=None,
                                  f"read whole groups of {kv} kv heads")
             k = lay.slice_replicated(k, 2, kv0, kv1 - kv0)
             v = lay.slice_replicated(v, 2, kv0, kv1 - kv0)
-        out = K5Attention.apply(q, k, v, causal)
+        if window:
+            out = flash_attention(q, k, v, causal=causal, q_offset=0,
+                                  window=window)
+        else:
+            out = K5Attention.apply(q, k, v, causal)
         y = torch.einsum("bshk,hkd->bsd", out, wo)
         return (lay.reduce_from_model(y) if q_tp else y), None
 
@@ -310,12 +342,7 @@ def apply_gqa(p: dict, x: torch.Tensor, cfg, *, pos_ids, cache=None,
     acc, m, l = flash_attention(q, ck.to(dtype), cv.to(dtype), causal=True,
                                 q_offset=write_pos, k_positions=kpos,
                                 chunk=min(1024, sl), stats=True)
-    grp = lay.group("model")
-    top = all_reduce_(m.clone(), grp, "max")
-    w = torch.exp(m - top)              # 0 for a rank with no visible key
-    l = all_reduce_(l * w, grp)
-    acc = all_reduce_(acc * w[..., None], grp)
-    out = (acc / torch.clamp_min(l[..., None], 1e-30)).to(dtype)
+    out = combine_key_blocks(lay, acc, m, l, True).to(dtype)
     if q_tp:
         y = torch.einsum("bshk,hkd->bsd", out[:, :, h0:h0 + hl], wo)
         return lay.reduce_from_model(y), {"k": ck, "v": cv}

@@ -28,9 +28,18 @@ token's contributions and the shared MLP's partial sums. ``aux``'s expert
 means are averaged over the batch ranks. Which pairs drop is decided per
 rank, so with drops the result differs from the gspmd path's; its parity
 target is the reference's ``_apply_moe_shard_map``. With one rank it
-computes the gspmd path's function, op for op. The gspmd body across
-ranks, which needs a capacity count over the global batch, is not ported:
-under a mesh of more than one rank it raises.
+computes the gspmd path's function, op for op.
+
+``moe_impl="gspmd"`` under a ``DeviceMesh`` runs the same body on the
+rank's blocks, but computes the reference's ``_apply_moe_gspmd`` of the
+global batch: the capacity is taken from the global token count (the
+rank's tokens times the batch ranks), and each (token, slot) pair's
+position within its expert is offset by the pairs the lower batch ranks
+route to it (their rows come first in the global token order), from one
+all-gather a layer, over each batch dim, of the counts of this rank's
+experts (``Layout.batch_exclusive_sum``). So exactly the pairs of the
+unsharded gspmd path are kept, whatever the mesh; the combine ends in the
+layer's one all-reduce over ``model`` (tagged ``GSPMD_TAG``).
 
 Gradients: each ``model`` rank computes the same loss on the same summed
 ``y``, so that all-reduce passes its gradient through unchanged
@@ -106,20 +115,25 @@ class Routing(NamedTuple):
 
 
 def route(p: dict, x: torch.Tensor, cfg, *, experts: range | None = None,
-          batch_mean=None) -> Routing:
+          batch_mean=None, batch_offsets=None, n_batch: int = 1
+          ) -> Routing:
     """Top-k routing of x [..., d] (flattened to T tokens) as the
     reference's ``_apply_moe_gspmd`` routes. Equal logits go to the lower
     expert, as ``jax.lax.top_k`` breaks ties (a stable descending sort).
 
-    ``experts`` (the expert-parallel body's local routing): only the pairs
-    of those experts are numbered, within their expert, and kept; the rest
-    get position 0 and ``keep`` False. ``batch_mean`` averages the aux
-    loss's two expert means ``[2, E]`` over the batch ranks."""
+    ``experts`` (the bodies over a mesh): only the pairs of those experts
+    are numbered, within their expert, and kept; the rest get position 0
+    and ``keep`` False. ``batch_mean`` averages the aux loss's two expert
+    means ``[2, E]`` over the batch ranks. The gspmd body over a mesh routes
+    the rank's tokens as the ``n_batch``-times larger global batch does:
+    the capacity of ``n_batch * T`` tokens, and each pair's position offset
+    by ``batch_offsets(count)``, the pairs the lower batch ranks give each
+    of ``experts`` (``count``: this rank's)."""
     e = p["router"].shape[-1]
     k = cfg.top_k
     xt = x.reshape(-1, x.shape[-1])
     t = xt.shape[0]
-    cap = capacity(t, cfg, e)
+    cap = capacity(t * n_batch, cfg, e)
     logits = xt.float() @ p["router"].float()
     if e > cfg.n_experts:                    # padded experts never win
         pad = torch.arange(e, device=x.device) >= cfg.n_experts
@@ -143,6 +157,9 @@ def route(p: dict, x: torch.Tensor, cfg, *, experts: range | None = None,
         flat = (F.one_hot(torch.where(mine, eid - experts.start, 0),
                           len(experts)) * mine[:, None])
     pos = ((flat.cumsum(dim=0) - flat) * flat).sum(dim=-1)
+    if batch_offsets is not None:
+        before = batch_offsets(flat.sum(dim=0))
+        pos = pos + (flat * before).sum(dim=-1)
     keep = pos < cap if experts is None else mine & (pos < cap)
     return Routing(idx, weights, pos.reshape(t, k), keep.reshape(t, k), cap,
                    aux)
@@ -181,7 +198,8 @@ def apply_moe(p: dict, x: torch.Tensor, cfg
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,d] -> (y [B,S,d], aux loss): the reference's
     ``_apply_moe_gspmd``, or its ``_apply_moe_shard_map`` for
-    ``moe_impl="shard_map"`` under a mesh with a ``model`` dim."""
+    ``moe_impl="shard_map"`` under a mesh with a ``model`` dim; under a
+    ``DeviceMesh`` both run on the rank's blocks (``_apply_moe_over_mesh``)."""
     from ..parallel.collectives import layout
     from ..parallel.sharding import current, mesh_dims
     lay = layout()
@@ -191,14 +209,9 @@ def apply_moe(p: dict, x: torch.Tensor, cfg
             if lay.mesh is None:
                 raise TypeError("the expert-parallel MoE runs over a "
                                 "DeviceMesh, not a MeshShape")
-            return _apply_moe_expert_parallel(lay, p, x, cfg)
-    if math.prod(lay.dims.values()) > 1:
-        raise NotImplementedError(
-            "the gspmd MoE body across ranks needs a capacity count over the "
-            "global batch, which is not ported (ROADMAP queue 1); run "
-            "moe_impl='shard_map' over a mesh")
-    if lay.mesh is not None:    # else the body casts each weight at its use
-        p = dict(p, **_moe_weights(lay, p, x, cfg))
+            return _apply_moe_over_mesh(lay, p, x, cfg, gspmd=False)
+    if lay.mesh is not None:
+        return _apply_moe_over_mesh(lay, p, x, cfg, gspmd=True)
     b, s, d = x.shape
     r = route(p, x, cfg)
     y = _experts(p, x.reshape(b * s, d), r.idx.reshape(-1), r, r.weights)
@@ -228,9 +241,10 @@ def _moe_weights(lay, p: dict, x: torch.Tensor, cfg) -> dict:
             for k, (shape, axes) in full.items()}
 
 
-# ------------------------------------------------------ expert parallel ----
+# ---------------------------------------------------------- over a mesh ----
 
 EP_TAG = "moe-ep"         # the expert-parallel body's all-reduce in LOG.tags
+GSPMD_TAG = "moe-gspmd"   # the gspmd body's over a mesh
 
 
 def __getattr__(name: str):
@@ -240,10 +254,13 @@ def __getattr__(name: str):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-def _apply_moe_expert_parallel(lay, p: dict, x: torch.Tensor, cfg
-                               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``src/repro/layers/moe.py:122`` on this rank's blocks (see the
-    module docstring): x [B_loc,S,d] -> (y [B_loc,S,d], aux). The router's
+def _apply_moe_over_mesh(lay, p: dict, x: torch.Tensor, cfg, *,
+                         gspmd: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE on this rank's blocks (see the module docstring): x
+    [B_loc,S,d] -> (y [B_loc,S,d], aux). ``gspmd`` False: the reference's
+    ``_apply_moe_shard_map`` (``src/repro/layers/moe.py:122``), local
+    routing and capacity; True: its ``_apply_moe_gspmd``
+    (``src/repro/layers/moe.py:60-120``) of the global batch. The router's
     and the experts' ``embed`` dims are gathered at use where FSDP's rule
     splits them; the shared MLP is tensor-parallel where the rules split
     its ``mlp`` dim, and then its partial sum joins the experts' in the
@@ -257,7 +274,9 @@ def _apply_moe_expert_parallel(lay, p: dict, x: torch.Tensor, cfg
     base = lay.rank("model") * e_loc
     b, s, d = x.shape
     r = route(p, x, cfg, experts=range(base, base + e_loc),
-              batch_mean=lay.batch_mean)
+              batch_mean=lay.batch_mean,
+              batch_offsets=lay.batch_exclusive_sum if gspmd else None,
+              n_batch=lay.n_batch if gspmd else 1)
     xt = lay.copy_to_model(x.reshape(b * s, d))
     weights = lay.copy_to_model(r.weights)
     mine = (r.idx >= base) & (r.idx < base + e_loc)
@@ -269,7 +288,7 @@ def _apply_moe_expert_parallel(lay, p: dict, x: torch.Tensor, cfg
                                   partial=True)
         if split:
             y = y + shared
-    y = lay.reduce_from_model(y, EP_TAG)
+    y = lay.reduce_from_model(y, GSPMD_TAG if gspmd else EP_TAG)
     if shared is not None and not split:
         y = y + shared
     return y, r.aux

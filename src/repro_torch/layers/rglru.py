@@ -7,6 +7,17 @@ causal depthwise conv. The reference scans time with
 ``jax.lax.associative_scan``; torch has no stable counterpart, so prefill
 runs ``layers.scan.linear_scan`` (a doubling scan, 15 steps at 32,768
 tokens). Decode carries a float32 {conv tail, h} state.
+
+Under a ``DeviceMesh`` (``parallel.set_mesh_rules``) the weights are this
+rank's blocks (the production layout, ``parallel.collectives``): ``wx`` and
+``wgate`` column-parallel over ``rnn``, the conv, ``lam`` and the scan local
+to the rank's channels. ``wa`` and ``wi`` split their input dim (``rnn``,
+None): each rank's product is a partial sum over ``model`` of the whole
+gate pre-activation, reduce-scattered so the rank keeps its channels
+before ``ba``/``bi`` (both gates in one collective). ``wo`` row-parallel,
+ending in one ``reduce_from_model``. The decode's ``conv`` and ``h`` are the
+rank's channels. Without a mesh (``WHOLE``) the same body runs with
+nothing split.
 """
 from __future__ import annotations
 
@@ -76,19 +87,39 @@ def _rglru_scan(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None
 def apply_rglru(p: dict, x: torch.Tensor, cfg, *, state=None
                 ) -> tuple[torch.Tensor, dict | None]:
     """Griffin's recurrent block (``src/repro/layers/rglru.py:72-107``).
-    state (decode): {"conv": [B,CW-1,W], "h": [B,W]} float32, or None
-    (prefill); returns (y, the new state or None)."""
+    state (decode): {"conv": [B,CW-1,W], "h": [B,W]} float32 (under a mesh,
+    the rank's channels), or None (prefill); returns (y, the new state or
+    None)."""
+    from ..parallel.collectives import layout
+    lay = layout()
     dtype = x.dtype
-    u = torch.matmul(x, p["wx"].to(dtype))
-    gate = F.gelu(torch.matmul(x, p["wgate"].to(dtype)), approximate="tanh")
+    d, w, cw = cfg.d_model, cfg.rnn_width, cfg.conv_width
+    f32 = torch.float32
+    wx, spec = lay.weight(p["wx"], ("embed", "rnn"), (d, w), dtype)
+    wgate, _ = lay.weight(p["wgate"], ("embed", "rnn"), (d, w), dtype)
+    tp = lay.on_model(spec, 1)
+    xt = lay.copy_to_model(x) if tp else x
+    u = torch.matmul(xt, wx)
+    gate = F.gelu(torch.matmul(xt, wgate), approximate="tanh")
     tail = None if state is None else state["conv"]
-    u, new_tail = _causal_conv(u, p["conv_w"].to(dtype),
-                               p["conv_b"].to(dtype), tail)
+    conv_w, _ = lay.weight(p["conv_w"], ("conv", "rnn"), (cw, w), dtype)
+    conv_b, _ = lay.weight(p["conv_b"], ("rnn",), (w,), dtype)
+    u, new_tail = _causal_conv(u, conv_w, conv_b, tail)
 
     uf = u.float()
-    r = torch.sigmoid(torch.matmul(uf, p["wa"].float()) + p["ba"].float())
-    i = torch.sigmoid(torch.matmul(uf, p["wi"].float()) + p["bi"].float())
-    log_a = -RGLRU_C * F.softplus(p["lam"].float()) * r
+    wa, _ = lay.weight(p["wa"], ("rnn", None), (w, w), f32)
+    wi, _ = lay.weight(p["wi"], ("rnn", None), (w, w), f32)
+    ba, _ = lay.weight(p["ba"], ("rnn",), (w,), f32)
+    bi, _ = lay.weight(p["bi"], ("rnn",), (w,), f32)
+    lam, _ = lay.weight(p["lam"], ("rnn",), (w,), f32)
+    if tp:          # partial sums over model: keep this rank's channels
+        ga, gi = lay.reduce_scatter_model(torch.stack(
+            [torch.matmul(uf, wa), torch.matmul(uf, wi)]), -1).unbind(0)
+    else:
+        ga, gi = torch.matmul(uf, wa), torch.matmul(uf, wi)
+    r = torch.sigmoid(ga + ba)
+    i = torch.sigmoid(gi + bi)
+    log_a = -RGLRU_C * F.softplus(lam) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
 
@@ -100,5 +131,6 @@ def apply_rglru(p: dict, x: torch.Tensor, cfg, *, state=None
         new_state = {"conv": new_tail, "h": h}
         h = h[:, None]
 
-    y = h.to(dtype) * gate
-    return torch.matmul(y, p["wo"].to(dtype)), new_state
+    wo, _ = lay.weight(p["wo"], ("rnn", "embed"), (w, d), dtype)
+    y = torch.matmul(h.to(dtype) * gate, wo)
+    return (lay.reduce_from_model(y) if tp else y), new_state

@@ -18,6 +18,18 @@ exact one-step recurrence with a float32 state (``shift`` [B, d], ``wkv``
 
 Token-shift mixing is the reference's static per-channel lerp (its noted
 simplification of RWKV6's dynamic ddlerp).
+
+Under a ``DeviceMesh`` (``parallel.set_mesh_rules``) the weights are this
+rank's blocks (the production layout, ``parallel.collectives``). Time mix:
+``wr``/``wk``/``wv``/``wg`` column-parallel over the heads, ``u``, the group
+norm and the WKV local to the rank's heads; the decay, whose ``w0`` and
+lora carry no head axis, is computed whole on every rank and narrowed to
+the rank's channels (``slice_replicated``); ``wo`` row-parallel, ending in
+one ``reduce_from_model``; the decode's ``wkv`` state is the rank's heads,
+``shift`` whole. Channel mix: ``wk`` column-parallel over ``mlp`` and ``wv``
+row-parallel (``vv`` whole after the reduce), ``wr`` column-parallel over
+the heads, its block of ``rr`` gathered over ``model`` before the product.
+Without a mesh (``WHOLE``) the same body runs with nothing split.
 """
 from __future__ import annotations
 
@@ -108,42 +120,73 @@ def wkv_step(state, r, k, v, logw, u):
 def apply_rwkv_time(p: dict, x: torch.Tensor, cfg, *, state=None
                     ) -> tuple[torch.Tensor, dict | None]:
     """Time mix (``src/repro/layers/rwkv.py:119-161``). state (decode):
-    {"shift": [B,d], "wkv": [B,H,D,D]} float32, or None (prefill); returns
-    (y, the new state or None)."""
+    {"shift": [B,d], "wkv": [B,H,D,D]} float32 (under a mesh, the rank's
+    heads of ``wkv``), or None (prefill); returns (y, the new state or
+    None)."""
+    from ..parallel.collectives import layout
+    lay = layout()
     dtype = x.dtype
     b, s, d = x.shape
     hs = cfg.rwkv_head_size
     h = d // hs
     prev = None if state is None else state["shift"].to(dtype)
     xs = _shift(x, prev)
-    mu = p["mu"].to(dtype)                          # [5, d]
+    mu, _ = lay.weight(p["mu"], (None, "embed"), (5, d), dtype)
     xr, xk, xv, xw, xg = (x + mu[i] * (xs - x) for i in range(5))
 
-    r = torch.matmul(xr, p["wr"].to(dtype))
-    k = torch.matmul(xk, p["wk"].to(dtype))
-    v = torch.matmul(xv, p["wv"].to(dtype))
-    g = F.silu(torch.matmul(xg, p["wg"].to(dtype)))
-    lora = torch.tanh(torch.matmul(xw.float(), p["wa"].float()))
-    logw = -torch.exp(p["w0"].float() + torch.matmul(lora, p["wb"].float()))
+    wr, spec = lay.weight(p["wr"], ("embed", "heads"), (d, d), dtype)
+    wk, _ = lay.weight(p["wk"], ("embed", "heads"), (d, d), dtype)
+    wv, _ = lay.weight(p["wv"], ("embed", "heads"), (d, d), dtype)
+    wg, _ = lay.weight(p["wg"], ("embed", "heads"), (d, d), dtype)
+    wo, _ = lay.weight(p["wo"], ("heads", "embed"), (d, d), dtype)
+    tp = lay.on_model(spec, 1)
+    c0, cl = lay.model_block(d) if tp else (0, d)
+    if cl % hs:
+        raise ValueError(f"{cl} channels a model rank do not hold whole "
+                         f"heads of {hs}")
+    hl = cl // hs
+    if tp:
+        xr, xk, xv, xg = (lay.copy_to_model(t) for t in (xr, xk, xv, xg))
+    r = torch.matmul(xr, wr)
+    k = torch.matmul(xk, wk)
+    v = torch.matmul(xv, wv)
+    g = F.silu(torch.matmul(xg, wg))
+    wa, _ = lay.weight(p["wa"], ("embed", "lora"), (d, LORA), torch.float32)
+    wb, _ = lay.weight(p["wb"], ("lora", "embed"), (LORA, d), torch.float32)
+    w0, _ = lay.weight(p["w0"], ("embed",), (d,), torch.float32)
+    lora = torch.tanh(torch.matmul(xw.float(), wa))
+    logw = -torch.exp(w0 + torch.matmul(lora, wb))
     logw = torch.clamp_min(logw, LOGW_MIN)
 
-    rf, kf, vf = (t.float().reshape(b, s, h, hs) for t in (r, k, v))
-    lw = logw.reshape(b, s, h, hs)
-    u = p["u"].float()
+    u, uspec = lay.weight(p["u"], ("heads", "head_dim"), (h, hs),
+                          torch.float32)
+    gn_w = p["gn_w"].reshape(h, hs)
+    gn_b = p["gn_b"].reshape(h, hs)
+    if tp:          # the rank's channels of what every rank holds whole
+        logw = lay.slice_replicated(logw, 2, c0, cl)
+        gn_w = lay.slice_replicated(gn_w, 0, c0 // hs, hl)
+        gn_b = lay.slice_replicated(gn_b, 0, c0 // hs, hl)
+        if not lay.on_model(uspec, 0):
+            u = lay.slice_replicated(u, 0, c0 // hs, hl)
+    rf, kf, vf = (t.float().reshape(b, s, hl, hs) for t in (r, k, v))
+    lw = logw.reshape(b, s, hl, hs)
 
     if state is None:
         o, _ = _wkv_chunked(rf, kf, vf, lw, u)
         new_state = None
     else:
+        if state["wkv"].shape[1] != hl:
+            raise ValueError(f"a wkv state of {state['wkv'].shape[1]} heads "
+                             f"for a rank computing {hl}")
         st, o1 = wkv_step(state["wkv"].float(), rf[:, 0], kf[:, 0],
                           vf[:, 0], lw[:, 0], u)
         o = o1[:, None]
         new_state = {"shift": x[:, -1].float(), "wkv": st}
 
-    o = group_norm_heads(o, p["gn_w"].reshape(h, hs),
-                         p["gn_b"].reshape(h, hs))
-    o = o.reshape(b, s, d).to(dtype) * g
-    return torch.matmul(o, p["wo"].to(dtype)), new_state
+    o = group_norm_heads(o, gn_w, gn_b)
+    o = o.reshape(b, s, cl).to(dtype) * g
+    y = torch.matmul(o, wo)
+    return (lay.reduce_from_model(y) if tp else y), new_state
 
 
 def init_rwkv_channel(col: "ParamInit", n: int, cfg) -> dict:
@@ -158,18 +201,33 @@ def init_rwkv_channel(col: "ParamInit", n: int, cfg) -> dict:
     }
 
 
-def apply_rwkv_channel(p: dict, x: torch.Tensor, *, state=None
+def apply_rwkv_channel(p: dict, x: torch.Tensor, *, state=None,
+                       d_ff: int | None = None
                        ) -> tuple[torch.Tensor, dict | None]:
     """Channel mix (``src/repro/layers/rwkv.py:179-195``). state (decode):
-    {"shift": [B,d]} float32, or None."""
+    {"shift": [B,d]} float32, or None. Under a mesh the weights are the
+    rank's blocks of a ``d_ff``-wide mix (``d_ff`` required)."""
+    from ..parallel.collectives import layout
+    lay = layout()
     dtype = x.dtype
+    d = x.shape[-1]
     prev = None if state is None else state["shift"].to(dtype)
     xs = _shift(x, prev)
-    mu = p["mu"].to(dtype)
+    mu, _ = lay.weight(p["mu"], (None, "embed"), (2, d), dtype)
     xk = x + mu[0] * (xs - x)
     xr = x + mu[1] * (xs - x)
-    k = torch.square(F.relu(torch.matmul(xk, p["wk"].to(dtype))))
-    vv = torch.matmul(k, p["wv"].to(dtype))
-    rr = torch.sigmoid(torch.matmul(xr, p["wr"].to(dtype)))
+    wk, spec_k = lay.weight(p["wk"], ("embed", "mlp"), (d, d_ff), dtype)
+    wv, _ = lay.weight(p["wv"], ("mlp", "embed"), (d_ff, d), dtype)
+    wr, spec_r = lay.weight(p["wr"], ("embed", "heads"), (d, d), dtype)
+    k_tp, r_tp = lay.on_model(spec_k, 1), lay.on_model(spec_r, 1)
+    k = torch.square(F.relu(torch.matmul(
+        lay.copy_to_model(xk) if k_tp else xk, wk)))
+    vv = torch.matmul(k, wv)
+    if k_tp:
+        vv = lay.reduce_from_model(vv)
+    rr = torch.sigmoid(torch.matmul(lay.copy_to_model(xr) if r_tp else xr,
+                                    wr))
+    if r_tp:
+        rr = lay.gather_model(rr, 2)
     new_state = None if state is None else {"shift": x[:, -1].float()}
     return rr * vv, new_state

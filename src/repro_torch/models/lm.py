@@ -37,11 +37,12 @@ layer in the backward pass (``_remat``), as the reference's
 Under a ``DeviceMesh`` installed by ``parallel.set_mesh_rules`` the
 parameters, inputs and cache are this rank's blocks under the active rules
 (the production layout, ``parallel.collectives``): the vocab-parallel
-embedding and LM head (logits gathered over ``model``), tensor-parallel
-attention and MLPs, FSDP's gather of each weight at use, the
-expert-parallel MoE, and ``init_cache`` at the rank's shapes. The MLA,
-RWKV6 and RG-LRU-with-window layouts are not ported (queue 1 item 12h-2):
-a mesh whose rules split one of their weights raises.
+embedding and LM head (logits gathered over ``model``), FSDP's gather of
+each weight at use, and tensor parallelism in every mixer and MLP: GQA,
+MLA, RWKV6's time and channel mixes, the RG-LRU and the windowed attention
+(its decode ring split by kv heads where they divide ``model``, else by
+ring slots), the MoE's expert-parallel and gspmd bodies, and
+``init_cache`` at the rank's shapes for every family.
 """
 from __future__ import annotations
 
@@ -52,15 +53,15 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..layers.attention import (apply_gqa, cache_kv_heads, flash_attention,
-                                init_gqa)
+from ..layers.attention import (apply_gqa, cache_kv_heads,
+                                combine_key_blocks, flash_attention,
+                                gqa_projections, init_gqa)
 from ..layers.grad import taking_grad
 from ..layers.mla import apply_mla, init_mla
 from ..layers.mlp import apply_mlp, init_mlp
 from ..layers.moe import apply_moe, init_moe
 from ..layers.norms import rms_norm
 from ..layers.rglru import apply_rglru, init_rglru
-from ..layers.rope import apply_rope, rope_cos_sin
 from ..layers.rwkv import (apply_rwkv_channel, apply_rwkv_time,
                            init_rwkv_channel, init_rwkv_time)
 from .init import ParamInit, torch_dtype
@@ -70,9 +71,6 @@ MLPS = ("mlp", "moe", "rwkv_cm")
 FRONTENDS = ("tokens", "frames")
 REMAT = ("none", "dots", "full")
 EMPTY_POS = -10**9          # a ring slot no position has been written to
-# mixers whose layout over a mesh is not ported (queue 1 item 12h-2)
-UNPORTED_LAYOUTS = {"mla": "MLA", "rwkv": "RWKV6", "rglru": "RG-LRU",
-                    "wattn": "windowed attention"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,24 +189,65 @@ def _apply_ring_block(p, x, cfg, *, pos_ids, cache, write_pos):
     (``src/repro/models/lm.py:137-164``): this step's K/V go to ring slot
     ``write_pos % window``, which takes ``write_pos`` as its position, and
     the query attends to the ring through its explicit key positions. No
-    M-RoPE and no KV replication on this branch, as in the reference."""
+    M-RoPE and no KV replication on this branch, as in the reference.
+
+    Under a mesh (``parallel.set_mesh_rules``) the query heads split over
+    ``model`` as in ``apply_gqa``, and the ring's ``k``/``v`` are the
+    rank's block (``cache_leaf_axes``): its kv heads where they divide
+    ``model``, each rank attending with the query heads that read them;
+    else its ring slots (context parallel over the ring), each rank
+    attending over its slots with every query head, the partial softmax
+    states joined by ``attention.combine_key_blocks``. The slot is written
+    on the rank that holds it; every rank writes the whole ``kpos``."""
+    from ..parallel.collectives import layout
+    lay = layout()
     dtype = x.dtype
-    window = cfg.window
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dtype))
-    cos, sin = rope_cos_sin(pos_ids, q.shape[-1], cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    window, h, kv = cfg.window, cfg.n_heads, cfg.n_kv_heads
+    q, k, v, wo, q_tp, kv_tp = gqa_projections(lay, p, x, cfg, pos_ids,
+                                               mrope=False)
     slot = write_pos % window
+    s = k.shape[1]
     ck, cv, kpos = cache["k"], cache["v"], cache["kpos"]
-    ck[:, slot:slot + k.shape[1]] = k.to(ck.dtype)
-    cv[:, slot:slot + v.shape[1]] = v.to(cv.dtype)
     kpos[slot] = write_pos
-    out = flash_attention(q, ck.to(dtype), cv.to(dtype), causal=True,
-                          q_offset=write_pos, window=window,
-                          k_positions=kpos, chunk=min(1024, window))
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
+    n = lay.size("model")
+    h0, hl = lay.model_block(h) if q_tp else (0, h)
+    if kv % n == 0:                     # the ring split by kv heads
+        c0, cl = lay.model_block(kv)
+        if not kv_tp:                   # k, v computed whole: this block
+            k, v = k[:, :, c0:c0 + cl], v[:, :, c0:c0 + cl]
+        ck[:, slot:slot + s] = k.to(ck.dtype)
+        cv[:, slot:slot + s] = v.to(cv.dtype)
+        g = h // kv
+        qa, ql = c0 * g, cl * g         # the query heads that read them
+        if not q_tp:
+            q, wo = q[:, :, qa:qa + ql], wo[qa:qa + ql]
+        out = flash_attention(q, ck.to(dtype), cv.to(dtype), causal=True,
+                              q_offset=write_pos, window=window,
+                              k_positions=kpos, chunk=min(1024, window))
+        return lay.reduce_from_model(
+            torch.einsum("bshk,hkd->bsd", out, wo))
+    # context parallel over the ring: this rank's slots [s0, s0 + sl)
+    if kv_tp:
+        raise ValueError(f"kv heads split over model with a ring of {kv} "
+                         "kv heads split by slots")
+    sl = ck.shape[1]
+    s0 = lay.rank("model") * sl
+    if s0 <= slot < s0 + sl:
+        if slot + s > s0 + sl:
+            raise ValueError("a decode write crosses two ranks' ring slots")
+        ck[:, slot - s0:slot - s0 + s] = k.to(ck.dtype)
+        cv[:, slot - s0:slot - s0 + s] = v.to(cv.dtype)
+    if q_tp:
+        q = lay.gather_model(q, 2)
+    acc, m, l = flash_attention(q, ck.to(dtype), cv.to(dtype), causal=True,
+                                q_offset=write_pos, window=window,
+                                k_positions=kpos[s0:s0 + sl],
+                                chunk=min(1024, sl), stats=True)
+    out = combine_key_blocks(lay, acc, m, l, True).to(dtype)
+    if q_tp:
+        y = torch.einsum("bshk,hkd->bsd", out[:, :, h0:h0 + hl], wo)
+        return lay.reduce_from_model(y)
+    return torch.einsum("bshk,hkd->bsd", out, wo)
 
 
 def _apply_block(p, x, cfg, kind, *, pos_ids, cache, write_pos):
@@ -244,7 +283,8 @@ def _apply_block(p, x, cfg, kind, *, pos_ids, cache, write_pos):
         out, aux = apply_moe(p["mlp"], h2, cfg)
     elif mlpk == "rwkv_cm":
         out, st = apply_rwkv_channel(p["mlp"], h2, state=(
-            None if cache is None else {"shift": cache["channel_shift"]}))
+            None if cache is None else {"shift": cache["channel_shift"]}),
+            d_ff=cfg.d_ff)
         if cache is not None:
             cache["channel_shift"].copy_(st["shift"])
     else:
@@ -458,25 +498,12 @@ class Model:
     def shardings(self, lay) -> dict:
         """``parallel.tree_shardings`` of the full parameter tree under
         ``lay``'s mesh and rules (from a ``meta`` init, kept for the last
-        layout). Refuses the families whose layout is not ported where the
-        rules split one of their mixers' weights."""
+        layout)."""
         if self._plan is None or self._plan[0] is not lay:
-            from ..optim.adamw import leaves
             from ..parallel.sharding import tree_shardings
             meta, axes = self.init_with_axes(device="meta")
-            sh = tree_shardings(meta, axes, lay.mesh, lay.rules)
-            for si, seg in enumerate(self.segments):
-                for bi, (mixer, _) in enumerate(seg.pattern):
-                    if mixer in UNPORTED_LAYOUTS and any(
-                            lay.size(m) > 1
-                            for leaf in leaves(sh[f"seg{si}"][f"blk{bi}"]
-                                               [0]["mixer"])
-                            for i in range(len(leaf.spec))
-                            for m in lay.names(leaf.spec, i)):
-                        raise NotImplementedError(
-                            f"the {UNPORTED_LAYOUTS[mixer]} layout is queue "
-                            "1 item 12h-2")
-            self._plan = (lay, sh)
+            self._plan = (lay, tree_shardings(meta, axes, lay.mesh,
+                                              lay.rules))
         return self._plan[1]
 
     def serve_step(self, params, cache, tokens: torch.Tensor, pos: int
@@ -542,12 +569,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
         if lay.mesh is not None:
             axes = cache_leaf_axes(key, shape, lay.size("model"))
             sh = logical_sharding(axes, shape, lay.mesh, lay.rules)
-            if key in ("k", "v") and len(shape) == 5 and not any(
+            positional = (key in ("k", "v") and len(shape) == 5) or key in (
+                "c", "k_rope")
+            if positional and lay.size("model") > 1 and not any(
                     sh.spec[2:4] if len(sh.spec) > 2 else ()):
-                if lay.size("model") > 1:
-                    raise ValueError(f"a {shape} {key} cache splits neither "
-                                     "its kv heads nor its positions over "
-                                     f"{lay.size('model')} model ranks")
+                raise ValueError(f"a {shape} {key} cache splits neither "
+                                 "its heads nor its positions over "
+                                 f"{lay.size('model')} model ranks")
             shape = sh.shard_shape(shape)
         return torch.full(shape, fill, dtype=dt, device=device)
 

@@ -15,9 +15,17 @@
   computed whole (the kv heads that its query heads read, where the kv
   heads are not split); the backward all-reduces the zero-padded
   gradient, so the whole gradient is back on every rank.
+* ``gather_model``: the blocks of a tensor split over ``model`` gathered
+  whole on every rank (backward: the rank's block of the gradient, which
+  every rank holds whole); ``reduce_scatter_model``: a partial sum over
+  ``model`` of which each rank keeps its block (backward: the gradient's
+  blocks gathered), for a product whose contracted dim and whose output
+  dim are both split (the RG-LRU's gates).
 * ``batch_mean``: the mean over the batch ranks of a value each computed
   from its own tokens (the MoE's expert loads), once-counted in the
-  gradient.
+  gradient; ``batch_exclusive_sum``: the sum of a value over the batch
+  ranks before this one, in the global batch's row order (the gspmd MoE's
+  offsets of each expert's pairs).
 
 Whether a dim is split is read from its spec (``logical_spec`` under the
 active rules, ``Layout.weight``), never assumed: the rules drop a mesh dim
@@ -204,6 +212,37 @@ class SliceReplicated(torch.autograd.Function):
         return all_reduce_(full, ctx.group), None, None, None, None
 
 
+class GatherFromModel(torch.autograd.Function):
+    """Forward: the blocks of ``group``'s ranks concatenated along ``dim``;
+    backward: this rank's block of the gradient (every rank computes the
+    same loss from the whole tensor, so each holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, start, length):
+        ctx.dim, ctx.start, ctx.length = dim, start, length
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.start, ctx.length).contiguous(), None,
+                None, None, None)
+
+
+class ReduceScatterToModel(torch.autograd.Function):
+    """Forward: ``t`` summed over ``group``, this rank's block of ``dim``
+    kept; backward: the blocks of the gradient gathered (each rank's
+    partial sum reaches every rank's block)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
 class BatchMean(torch.autograd.Function):
     """Forward: the mean over the batch ranks (``groups``, ``n`` ranks in
     all); backward: the gradient over ``n``, the share of one rank's loss in
@@ -325,12 +364,34 @@ class Layout:
                                      self.group("model"))
 
     def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The blocks of ``model``'s ranks along ``dim`` (no gradient)."""
-        return all_gather(x, self.group("model"), dim)
+        """The blocks of ``model``'s ranks along ``dim``; the gradient goes
+        back to this rank's block."""
+        dim %= x.dim()
+        length = x.shape[dim]
+        return GatherFromModel.apply(x, dim, self.group("model"),
+                                     self.rank("model") * length, length)
+
+    def reduce_scatter_model(self, x: torch.Tensor, dim: int
+                             ) -> torch.Tensor:
+        """``x`` (a partial sum) summed over ``model``, this rank's block of
+        ``dim`` kept."""
+        return ReduceScatterToModel.apply(x, dim % x.dim(),
+                                          self.group("model"))
 
     def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
         return BatchMean.apply(t, [self.group(d) for d in self.batch],
                                self.n_batch)
+
+    def batch_exclusive_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the batch ranks before this one, in the
+        global batch's row order (``pod`` the slowest): one all-gather over
+        each batch dim (no gradient)."""
+        g, before = t[None], 0
+        for d in reversed(self.batch):      # the fastest dim first
+            g = all_gather(g, self.group(d), 0)
+        for d in self.batch:
+            before = before * self.size(d) + self.rank(d)
+        return g[:before].sum(dim=0)
 
     def batch_sum_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the batch ranks, in place (no gradient)."""

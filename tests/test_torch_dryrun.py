@@ -16,8 +16,15 @@
   hubert-xlarge --shape train_4k --out <tmp>`` traces the cell on the
   16x16 fake mesh, prints ``memory:`` and writes its record (about 30 s
   on an idle 8-core host; a 120 s timeout of its own); an MLA, an RWKV6
-  and an RG-LRU cell write the state a rank holds and say that their step
-  is not traced.
+  and an RG-LRU cell on the 2x16x16 mesh trace too (the MLA prefill about
+  20 s), and their collectives are counted layer by layer: the
+  row-parallel reduces, the expert-parallel MoE's and its aux loss's batch
+  means, RWKV's gathered receptance, the RG-LRU's gate reduce-scatter and
+  the ring's log-sum-exp combine.
+* Every registry config, with and without its production overrides, has
+  its parameter shardings under the production rules on (16, 16) and
+  (2, 16, 16) (``Model.shardings``); a smoke MoE traced on a fake (2, 2)
+  mesh with ``moe_impl="gspmd"`` counts the gspmd body's collectives.
 """
 import json
 import os
@@ -193,30 +200,124 @@ def test_dryrun_cell_subprocess(tmp_path):
     assert rec["collectives"]["all-reduce"]["count"] > 0
 
 
-@pytest.mark.parametrize("arch,shape,family", [
-    ("deepseek-v2-236b", "prefill_32k", "MLA"),
-    ("rwkv6-1.6b", "long_500k", "RWKV6"),
-    ("recurrentgemma-9b", "decode_32k", "RG-LRU")])
-def test_unported_layouts_record_their_state(tmp_path, arch, shape, family):
+def _layers(arch):
+    cfg = get_config(arch)
+    return [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+
+
+def _deepseek_prefill(coll):
+    """deepseek-v2's prefill: the vocab-parallel embedding's reduce, each
+    layer's attention and MLP (the dense layer 0) or expert-parallel MoE
+    reduce over ``model``, and each MoE layer's aux means averaged over
+    ``pod`` and ``data``; FSDP's gathers and the logits' gather."""
+    kinds = _layers("deepseek-v2-236b")
+    moe = sum(m == "moe" for _, m in kinds)
+    assert coll["all-reduce"]["count"] == 1 + 2 * len(kinds) + 2 * moe
+    assert coll["all-gather"]["count"] > len(kinds)
+    assert coll["reduce-scatter"]["count"] == 0
+
+
+def _rwkv_decode(coll):
+    """rwkv6's decode (no FSDP): the embedding's reduce, each time mix's
+    and channel mix's reduce, each channel mix's gathered receptance and
+    the logits' gather."""
+    n = len(_layers("rwkv6-1.6b"))
+    assert coll["all-reduce"]["count"] == 1 + 2 * n
+    assert coll["all-gather"]["count"] == n + 1
+    assert coll["reduce-scatter"]["count"] == 0
+
+
+def _griffin_decode(coll):
+    """recurrentgemma's decode: the embedding's reduce, each mixer's and
+    MLP's reduce, the ring's three combining reduces (its one kv head on
+    16 model ranks: split by ring slots), and each RG-LRU's gate
+    reduce-scatter."""
+    kinds = _layers("recurrentgemma-9b")
+    rings = sum(k == "wattn" for k, _ in kinds)
+    rglru = sum(k == "rglru" for k, _ in kinds)
+    assert coll["all-reduce"]["count"] == 1 + 2 * len(kinds) + 3 * rings
+    assert coll["reduce-scatter"]["count"] == rglru
+    assert coll["all-gather"]["count"] > rings
+
+
+@pytest.mark.parametrize("arch,shape,counts", [
+    ("deepseek-v2-236b", "prefill_32k", _deepseek_prefill),
+    ("rwkv6-1.6b", "long_500k", _rwkv_decode),
+    ("recurrentgemma-9b", "decode_32k", _griffin_decode)])
+def test_mla_rwkv_rglru_cells_trace(tmp_path, arch, shape, counts):
     r = _dryrun(tmp_path, "--arch", arch, "--shape", shape, "--multi-pod")
     assert r.returncode == 0, r.stderr[-3000:]
     rec = json.loads((tmp_path / f"{arch}__{shape}__2x16x16.json"
                       ).read_text())
-    assert rec["step"] == (f"not traced: the {family} layout is queue 1 "
-                           "item 12h-2")
-    assert rec["ranks"] == 512 and "flops" not in rec
-    assert rec["memory"]["argument_size_in_bytes"] == \
+    assert rec["step"] == "traced" and rec["ranks"] == 512
+    assert rec["flops"] > 0 and rec["bytes"] > 0
+    mem = rec["memory"]
+    assert mem["peak_bytes"] >= mem["argument_size_in_bytes"] == \
         rec["state"]["argument_size_in_bytes"] > 0
+    counts(rec["collectives"])
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_has_its_layout(arch):
+    """``Model.shardings`` under the production rules (with FSDP's where
+    the config sets it) on both production meshes, with and without the
+    arch's production overrides: every leaf gets a sharding, and at least
+    one is split over ``model``."""
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.parallel.collectives import Layout
+    for production in (False, True):
+        cfg = get_config(arch, production=production)
+        for multi in (False, True):
+            mesh = production_mesh_shape(multi_pod=multi)
+            rules, _ = cell_rules(cfg, mesh)
+            sh = leaves(Model(cfg).shardings(Layout(mesh, rules)))
+            assert sh and all(s.spec is not None for s in sh)
+            assert any("model" in str(s.spec) for s in sh), (arch, multi)
+
+
+GSPMD = """
+import dataclasses, json
+from repro_torch.configs import get_smoke
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.dryrun import cell_rules, fake_mesh, trace_cell
+from repro_torch.parallel import MeshShape
+cfg = dataclasses.replace(get_smoke("qwen2-moe-a2.7b"), moe_impl="gspmd")
+shape = MeshShape(("data", "model"), (2, 2))
+rules, over = cell_rules(cfg, shape)
+with fake_mesh(shape, rank=1) as mesh:
+    print(json.dumps(trace_cell(cfg, ShapeConfig("s", 64, 4, "prefill"),
+                                mesh, rules, over)))
+"""
+
+
+def test_gspmd_moe_traces_over_ranks():
+    """qwen2-moe's smoke prefill with the gspmd MoE on rank 1 of a fake
+    (2, 2) mesh: per MoE layer one all-gather of the rank's experts' pair
+    counts over ``data`` (the offsets of the global capacity count), the
+    aux means' reduce over ``data`` and the combine's reduce over
+    ``model``; the attention's reduce and the embedding's; the logits'
+    gather."""
+    r = subprocess.run([sys.executable, "-c", GSPMD], cwd=REPO,
+                       env={**os.environ, "PYTHONPATH": str(REPO / "src")},
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, r.stderr[-3000:]
+    coll = json.loads(r.stdout.strip().splitlines()[-1])["collectives"]
+    from repro_torch.configs import get_smoke
+    n = get_smoke("qwen2-moe-a2.7b").n_layers
+    assert coll["all-gather"]["count"] == n + 1
+    # [8 local experts] int64 counts from each of the 2 data ranks, and
+    # the [2 rows, 512 vocab] bf16 logits
+    assert coll["all-gather"]["bytes"] == n * 2 * 8 * 8 + 2 * 512 * 2
+    assert coll["all-reduce"]["count"] == 1 + 3 * n
 
 
 def test_sweep_cells():
-    """Every supported cell on both meshes: 40 of the seven families the
-    layout runs, 22 of the three whose layout is 12h-2."""
-    from repro_torch.launch.dryrun import unported_family
+    """Every supported cell on both meshes, all traced: the ten families'
+    20 + 11 (arch, shape) cells, on (16, 16) and (2, 16, 16)."""
     cells = cell_list()
     assert len(cells) == 2 * len(SUPPORTED) == 62
-    traced = [c for c in cells if unported_family(get_config(c[1])) is None]
-    assert len(traced) == 40
+    assert {c[1] for c in cells} == set(ARCH_IDS)
     assert [c[0] for c in cells] == sorted(c[0] for c in cells)
 
 

@@ -250,7 +250,10 @@ def test_smoke_recurrent_phase_rehearses_on_cpu():
     (recurrentgemma at 5 layers, a ring check of 40 tokens past its window
     of 16): both prefills launch no K5, the WKV's and the windowed
     attention's shares are measured, both float32 checks pass, and each
-    engine's second wave enters used slots, checked fresh on admission."""
+    engine's second wave enters used slots, checked fresh on admission.
+    Each model's prefill and decode through the production layout on a
+    one-rank gloo group equal the unsharded ones bit for bit, and
+    recurrentgemma's decode crosses the wrap of its ring."""
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
@@ -268,6 +271,14 @@ def test_smoke_recurrent_phase_rehearses_on_cpu():
         assert model["serve"]["pages"] == 0
         assert model["serve"]["admissions"]["into_used_slots"] == 4
     assert gr["serve"]["admissions"]["ring_rows"] == 8
+    for model in (rw, gr):
+        lay = model["layout"]
+        assert lay["k5_launches"] == 0 and lay["prefill_equal"]
+        assert lay["hidden_equal"] and lay["logit_rows_equal"]
+        assert all(d["equal"] for d in lay["decode"].values())
+    ring = gr["layout"]["decode"]["ring_wrap"]
+    window = get_smoke("recurrentgemma-9b").window
+    assert ring["start"] < window < ring["start"] + ring["steps"]
 
 
 def _table_ops(rng):
