@@ -7,8 +7,9 @@ permanently, so the last minutes before any failure are always on disk
 in the incident bundle:
 
 - ``arm()`` enables the global ``METRICS``/``TRACE`` singletons, sets
-  ``TRACE.sample_n`` so only 1-in-N spans pay the allocation+append cost
-  (``event``s — breaker opens, SLO breaches — are never sampled), and
+  ``TRACE.sample_n`` so only 1-in-N root spans, each with everything
+  inside it, pay the allocation+append cost (``event``s — breaker opens,
+  SLO breaches — are never sampled), and
   clears ``METRICS.counted_dispatch`` so serving keeps the plain/cached
   kernels instead of the counted-dispatch planes — exact live hotness
   stays an opt-in full-fidelity drill, not a standing device tax.
@@ -46,7 +47,7 @@ __all__ = ["DEFAULT_INTERVAL_S", "DEFAULT_SPAN_SAMPLE", "FlightRecorder",
            "RECORDER"]
 
 DEFAULT_INTERVAL_S = 1.0           # sampler wake period
-DEFAULT_SPAN_SAMPLE = 8            # keep 1-in-8 spans when armed
+DEFAULT_SPAN_SAMPLE = 8            # keep 1-in-8 root spans when armed
 DEFAULT_SERIES_MAXLEN = 512        # points kept per time series
 DEFAULT_MAX_SERIES = 256           # distinct series before dropping new ones
 

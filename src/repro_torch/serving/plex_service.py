@@ -103,11 +103,38 @@ deletes, and one device launch per micro-batch.
 * **Observability.** ``obs.TRACE`` spans time the host clock through the
   pipeline: ``serve.lookup`` around a request, ``serve.staging`` (the biased
   pinned upload), ``serve.dispatch`` (the enqueue of K1's launches) and
-  ``serve.sync`` (the wait and the copy back); ``serve.submit``,
-  ``serve.queue_wait`` and ``serve.drain`` on the queue; ``merge.capture``,
-  ``merge.build`` and ``merge.publish``; ``persist.open``. No span syncs
-  the card or reads a device value, so a request's launches overlap as they
-  do untraced. Incident bundles (``obs.incident``) are written for
+  ``serve.sync`` (the wait and the copy back); ``merge.capture``,
+  ``merge.build`` and ``merge.publish``; ``persist.open``; and
+  ``serve.new_state`` (the constructor's planes and upload, kept as
+  ``upload_s`` whether traced or not). On the queue, each child inside its
+  parent::
+
+      serve.submit               req            submit()
+        serve.lock               req            the wait for the service lock
+        serve.take               reqs           queued queries into a block
+          serve.queue_wait       req, lanes     each piece's time queued
+        serve.staging            reqs           pinned buffer, bias, upload
+        serve.dispatch           reqs, "queue"  K1's launch and its event
+        serve.timer              req, op        Timer start (or cancel)
+      serve.drain                req            drain(), result()
+        serve.lock, serve.timer  req            the lock; the timer cancelled
+        (serve.take, serve.staging, serve.dispatch: a remainder launched)
+        serve.drain.wait         reqs           the host waiting on the card
+        serve.copy_back          reqs           device to pageable host copy
+        serve.cache_count        reqs           the cache's hit count read
+        serve.fill               reqs           answers into the tickets, the
+                                                block freed
+      serve.deadline_flush       work           the timer thread's pass; its
+                                                lock, launches and drains
+                                                nest as above
+
+  ``req`` is the ticket's id (``LookupTicket.id``, always assigned), ``reqs``
+  the ids of the tickets with lanes in a block (built only while tracing),
+  so a block the timer thread answers is still tied to its requests.
+  ``stats.timers_started``, ``deadline_flushes`` and ``deadline_idle`` count
+  the timer's threads and passes, always. No span syncs the card or reads
+  a device value, so a request's launches overlap as they do untraced.
+  Incident bundles (``obs.incident``) are written for
   ``backend.unavailable``, ``merge.failure``, ``merge.worker_death``,
   ``generation.quarantine`` and ``queue.shed``, off the service lock where
   the caller does not hold it. ``attach_slo`` adds ``health()["slo"]``.
@@ -121,6 +148,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import itertools
 import logging
 import pathlib
 import shutil
@@ -205,6 +233,13 @@ class ServiceStats:
     backend_failures: int = 0     # dispatch/sync failures (incl. injected)
     merge_failures: int = 0       # contained merge/commit failures
     shed_queries: int = 0         # lanes refused by admission control
+    # the queue's deadline timer: threads started, and their passes that
+    # launched or drained work against those that found none
+    timers_started: int = 0
+    deadline_flushes: int = 0
+    deadline_idle: int = 0
+    # set-up: the constructor's planes and their upload (``_new_state``)
+    upload_s: float = 0.0
     # per-backend breaker states (the full snapshots are in health())
     breakers: dict = dataclasses.field(default_factory=dict)
     # guards the per-epoch cache counters against a merge's new_epoch
@@ -264,6 +299,7 @@ class LookupTicket:
 
     def __init__(self, svc: "PlexService", n: int):
         self._svc = svc
+        self.id = next(svc._ticket_ids)   # the request id its spans carry
         self.n = n
         self._out = np.empty(n, dtype=np.int64)
         self._filled = 0
@@ -286,7 +322,7 @@ class LookupTicket:
         outstanding. ``timeout`` bounds that drain: on expiry a
         ``TimeoutError`` propagates and the ticket stays valid."""
         if self._filled < self.n:
-            self._svc.drain(timeout=timeout)
+            self._svc._drain(timeout, req=self.id)
         if self._error is not None:
             raise self._error
         return self._out
@@ -387,6 +423,11 @@ def _quarantine(root: pathlib.Path, *paths: pathlib.Path) -> None:
         except OSError as e:  # pragma: no cover - fs-specific
             log.warning("quarantine(%s): could not move %s (%s)", root,
                         p.name, e)
+
+
+def _reqs(pieces: list) -> tuple[int, ...]:
+    """The request ids of a queue block's ticket pieces."""
+    return tuple(piece[0].id for piece in pieces)
 
 
 def default_fallback(device) -> str | None:
@@ -531,6 +572,7 @@ class PlexService:
         self._outstanding: list[tuple] = []
         self._lock = threading.RLock()
         self._timer: threading.Timer | None = None
+        self._ticket_ids = itertools.count(1)
         # durable-mode attachment (None: in memory only); load_s is the wall
         # time PlexService.open took (map, planes, WAL replay)
         self._dur: _DurableState | None = None
@@ -542,7 +584,13 @@ class PlexService:
             snap = Snapshot.build(keys, self.eps, n_shards=n_shards,
                                   device=self.device,
                                   workers=self.build_workers, **build_kw)
+        t0 = time.perf_counter()
         self._state = self._new_state(snap)
+        # enqueued, not synchronised: copies may still be in flight
+        self.stats.upload_s = time.perf_counter() - t0
+        if TRACE.enabled:
+            TRACE.record("serve.new_state", self.stats.upload_s,
+                         fused=self._state.stacked is not None)
         # live per-shard routed counts and probe-travel histogram of the
         # current epoch, folded from the counted dispatch at sync points;
         # reset at every publish (a merge may change the shard map)
@@ -632,6 +680,12 @@ class PlexService:
     def build_s(self) -> float:
         """The snapshot's build time (a reopened one keeps its original)."""
         return self._state.snapshot.build_s
+
+    @property
+    def upload_s(self) -> float:
+        """The wall time of the constructor's planes and their upload
+        (``_new_state``, host planes and the enqueued copies; no sync)."""
+        return self.stats.upload_s
 
     @property
     def fused(self) -> bool:
@@ -1012,7 +1066,8 @@ class PlexService:
     def health(self) -> dict:
         """One JSON-friendly operational snapshot: what an operator (or a
         chaos run) needs to tell *degraded* from *broken* — generation,
-        queue depth, WAL size, breaker states, recent errors. Lock-free;
+        queue depth and the deadline timer's passes, WAL size, breaker
+        states, recent errors. Lock-free;
         safe to poll while serving."""
         state = self._state
         dur = self._dur
@@ -1042,6 +1097,9 @@ class PlexService:
             "queue_depth": int(self._q_len),
             "queue_limit": int(self.max_queue),
             "inflight_batches": int(self.stats.inflight_batches),
+            "timers_started": int(self.stats.timers_started),
+            "deadline_flushes": int(self.stats.deadline_flushes),
+            "deadline_idle": int(self.stats.deadline_idle),
             "shed_queries": int(self.stats.shed_queries),
             "backend_failures": int(self.stats.backend_failures),
             "fallback_lookups": int(self.stats.fallback_lookups),
@@ -1088,7 +1146,8 @@ class PlexService:
         cached = [r for r in results if r.hits is not None]
         if not cached:
             return
-        hits = torch.cat([r.hits for r in cached]).tolist()
+        hits = (cached[0].hits.tolist() if len(cached) == 1
+                else torch.cat([r.hits for r in cached]).tolist())
         for r, h in zip(cached, hits):
             n = r.out.numel()
             self.stats.note_cache_synced(h, n, h == n, epoch)
@@ -1670,7 +1729,7 @@ class PlexService:
         ticket = LookupTicket(self, q.size)
         if q.size == 0:
             return ticket
-        with TRACE.span("serve.submit", n=q.size):
+        with TRACE.span("serve.submit", req=ticket.id, n=q.size):
             err = self._enqueue(q, ticket)
         if err is not None:
             # a refused submit: the bundle is written off the service lock
@@ -1684,7 +1743,10 @@ class PlexService:
                  ) -> QueueFullError | None:
         """``submit``'s work under the service lock; returns the error of a
         submit refused by admission control (the ticket then carries it)."""
-        with self._lock:
+        req = ticket.id
+        with TRACE.span("serve.lock", req=req):
+            self._lock.acquire()
+        try:
             if self.max_queue and self._q_len + q.size > self.max_queue:
                 err = QueueFullError(
                     f"submit: queue holds {self._q_len} of "
@@ -1712,25 +1774,30 @@ class PlexService:
                     # an older chunk's timer is pending: it drains these
                     self._flush_partial(st)
                 else:
-                    self._arm_timer(self.max_delay_s - age)
+                    self._arm_timer(self.max_delay_s - age, req)
             else:
                 # the queries filled whole blocks: the timer drains them
-                self._arm_timer(self.max_delay_s)
+                self._arm_timer(self.max_delay_s, req)
+        finally:
+            self._lock.release()
         return None
 
-    def _arm_timer(self, delay_s: float) -> None:
+    def _arm_timer(self, delay_s: float, req: int | None = None) -> None:
         """Schedule the deadline flush (one live timer at most; lock
-        held)."""
+        held); ``req``: the request that armed it."""
         if self._timer is not None:
             return
-        t = threading.Timer(max(delay_s, 0.0), self._deadline_flush)
-        t.daemon = True
-        self._timer = t
-        t.start()
+        with TRACE.span("serve.timer", op="start", req=req):
+            t = threading.Timer(max(delay_s, 0.0), self._deadline_flush)
+            t.daemon = True
+            self._timer = t
+            t.start()
+        self.stats.timers_started += 1
 
-    def _cancel_timer(self) -> None:
+    def _cancel_timer(self, req: int | None = None) -> None:
         if self._timer is not None:
-            self._timer.cancel()
+            with TRACE.span("serve.timer", op="cancel", req=req):
+                self._timer.cancel()
             self._timer = None
 
     def _deadline_flush(self) -> None:
@@ -1738,48 +1805,67 @@ class PlexService:
         deadline has passed (re-arm when woken early), and drain the blocks
         a submit launched after the timer was armed. A failure is parked on
         the tickets it concerns and logged here."""
-        with self._on_device(), self._lock:
-            self._timer = None
-            if not (self._q_len or self._outstanding):
-                return
-            if self._q_len:
-                age = time.monotonic() - self._q_chunks[0][3]
-                if age < self.max_delay_s:
-                    self._arm_timer(self.max_delay_s - age)
-                    return
+        with TRACE.span("serve.deadline_flush") as sp, self._on_device():
+            with TRACE.span("serve.lock"):
+                self._lock.acquire()
             try:
-                self._flush_queue()
-                self._drain_outstanding()
-            except Exception:
-                log.exception("deadline flush failed")
+                work = self._deadline_pass()
+            finally:
+                self._lock.release()
+            sp.set(work=work)
+
+    def _deadline_pass(self) -> bool:
+        """One deadline pass under the lock; whether it launched or drained
+        anything (counted either way)."""
+        self._timer = None
+        work = bool(self._q_len or self._outstanding)
+        if work and self._q_len:
+            age = time.monotonic() - self._q_chunks[0][3]
+            if age < self.max_delay_s:
+                self._arm_timer(self.max_delay_s - age)
+                work = False
+        if not work:
+            self.stats.deadline_idle += 1
+            return False
+        self.stats.deadline_flushes += 1
+        try:
+            self._flush_queue()
+            self._drain_outstanding()
+        except Exception:
+            log.exception("deadline flush failed")
+        return True
 
     def _take_block(self, want: int) -> tuple[np.ndarray, list, int]:
         """Pop up to ``want`` queued queries into a fresh block (fresh: a
         launched block stays in flight across calls); returns (block,
         ticket pieces, lanes filled)."""
-        buf = np.empty(want, dtype=np.uint64)
-        pieces = []
-        filled = 0
-        obs = METRICS.enabled or TRACE.enabled
-        now = time.monotonic() if obs else 0.0
-        while filled < want and self._q_chunks:
-            entry = self._q_chunks[0]
-            ticket, arr, consumed, arrival = entry
-            take = min(want - filled, arr.size - consumed)
-            buf[filled:filled + take] = arr[consumed:consumed + take]
-            pieces.append((ticket, filled, consumed, take))
-            ticket._queued -= take
-            entry[2] += take
-            filled += take
-            if obs:
-                wait_s = max(now - arrival, 0.0)
-                TRACE.record("serve.queue_wait", wait_s, lanes=take)
-                if METRICS.enabled:
-                    METRICS.histogram("serve.queue_wait_us").observe(
-                        wait_s * 1e6)
-            if entry[2] == arr.size:
-                self._q_chunks.popleft()
-        self._q_len -= filled
+        with TRACE.span("serve.take", lanes=want) as sp:
+            buf = np.empty(want, dtype=np.uint64)
+            pieces = []
+            filled = 0
+            obs = METRICS.enabled or TRACE.enabled
+            now = time.monotonic() if obs else 0.0
+            while filled < want and self._q_chunks:
+                entry = self._q_chunks[0]
+                ticket, arr, consumed, arrival = entry
+                take = min(want - filled, arr.size - consumed)
+                buf[filled:filled + take] = arr[consumed:consumed + take]
+                pieces.append((ticket, filled, consumed, take))
+                ticket._queued -= take
+                entry[2] += take
+                filled += take
+                if obs:
+                    wait_s = max(now - arrival, 0.0)
+                    TRACE.record("serve.queue_wait", wait_s, req=ticket.id,
+                                 lanes=take)
+                    if METRICS.enabled:
+                        METRICS.histogram("serve.queue_wait_us").observe(
+                            wait_s * 1e6)
+                if entry[2] == arr.size:
+                    self._q_chunks.popleft()
+            self._q_len -= filled
+            if TRACE.enabled:
+                sp.set(reqs=_reqs(pieces))
         return buf[:filled], pieces, filled
 
     def _queue_failed(self, e: BaseException) -> None:
@@ -1825,13 +1911,18 @@ class PlexService:
                               pieces: list, filled: int) -> None:
         """Launch one queue block (one launch) and record its event; a
         failed launch answers the block through the fallback chain."""
+        reqs = _reqs(pieces) if TRACE.enabled else None
         try:
-            res = st.lookup_planes(self._upload(buf), n_valid=filled,
-                                   delta=self._delta_view(self._state))
-            ev = None
-            if self.device.type == "cuda":
-                ev = torch.cuda.Event()
-                ev.record(torch.cuda.current_stream(self.device))
+            with TRACE.span("serve.staging", n=filled, reqs=reqs):
+                qd = self._upload(buf)
+            with TRACE.span("serve.dispatch", path="queue", n=filled,
+                            reqs=reqs):
+                res = st.lookup_planes(qd, n_valid=filled,
+                                       delta=self._delta_view(self._state))
+                ev = None
+                if self.device.type == "cuda":
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(self.device))
         except Exception as e:
             self._queue_failed(e)
             self._fill_pieces_fallback(buf, pieces)
@@ -1867,28 +1958,36 @@ class PlexService:
         outstanding."""
         while self._outstanding:
             res, buf, pieces, epoch, ev = self._outstanding[0]
-            while ev is not None and not ev.query():
-                if deadline is not None and time.monotonic() > deadline:
-                    raise TimeoutError(
-                        f"drain: deadline expired with "
-                        f"{len(self._outstanding)} batch(es) in flight")
-                if deadline is None:
-                    ev.synchronize()
-                else:
-                    time.sleep(1e-4)
+            reqs = _reqs(pieces) if TRACE.enabled else None
+            with TRACE.span("serve.drain.wait", reqs=reqs):
+                while ev is not None and not ev.query():
+                    if deadline is not None and time.monotonic() > deadline:
+                        raise TimeoutError(
+                            f"drain: deadline expired with "
+                            f"{len(self._outstanding)} batch(es) in flight")
+                    if deadline is None:
+                        ev.synchronize()
+                    else:
+                        time.sleep(1e-4)
             self._outstanding.pop(0)
             try:
-                arr = res.out.cpu().numpy()
-                self._note_synced([res], epoch)
+                with TRACE.span("serve.copy_back", n=buf.size, reqs=reqs):
+                    arr = res.out.cpu().numpy()
+                with TRACE.span("serve.cache_count", reqs=reqs):
+                    self._note_synced([res], epoch)
             except Exception as e:
                 self._queue_failed(e)
                 self._fill_pieces_fallback(buf, pieces)
                 self.stats.note_drained(1)
                 continue
-            for ticket, src, dst, cnt in pieces:
-                ticket._out[dst:dst + cnt] = arr[src:src + cnt]
-                ticket._filled += cnt
-            self.stats.note_drained(1)
+            with TRACE.span("serve.fill", reqs=reqs):
+                for ticket, src, dst, cnt in pieces:
+                    ticket._out[dst:dst + cnt] = arr[src:src + cnt]
+                    ticket._filled += cnt
+                self.stats.note_drained(1)
+                # the block's device result and host copy are freed here,
+                # inside the span, rather than between the drain's spans
+                del res, arr
         if METRICS.enabled:
             state = self._state
             if state.stacked is not None:
@@ -1901,22 +2000,31 @@ class PlexService:
         ``timeout`` bounds the whole call (the lock and the waits) and
         raises ``TimeoutError`` on expiry; unsynced blocks stay
         outstanding for the next drain."""
+        self._drain(timeout)
+
+    def _drain(self, timeout: float | None, req: int | None = None) -> None:
+        """``drain``; ``req``: the ticket whose ``result()`` drains, the
+        request id of the drain's spans."""
         deadline = None if timeout is None \
             else time.monotonic() + float(timeout)
-        if timeout is None:
-            self._lock.acquire()
-        elif not self._lock.acquire(timeout=float(timeout)):
-            raise TimeoutError(
-                f"drain: service lock not acquired within {timeout}s")
-        try:
-            with TRACE.span("serve.drain", queued=self._q_len,
-                            outstanding=len(self._outstanding)):
-                self._cancel_timer()
+        with TRACE.span("serve.drain", req=req) as sp:
+            with TRACE.span("serve.lock", req=req):
+                if timeout is None:
+                    self._lock.acquire()
+                elif not self._lock.acquire(timeout=float(timeout)):
+                    raise TimeoutError(
+                        f"drain: service lock not acquired within "
+                        f"{timeout}s")
+            try:
+                if TRACE.enabled:
+                    sp.set(queued=self._q_len,
+                           outstanding=len(self._outstanding))
+                self._cancel_timer(req)
                 if self._q_len:
                     self._flush_queue()
                 self._drain_outstanding(deadline)
-        finally:
-            self._lock.release()
+            finally:
+                self._lock.release()
 
     # -- warm-up and measurement ----------------------------------------------
     def _warm(self, state: _ServiceState, backend: str | None = None) -> None:

@@ -455,9 +455,9 @@ def test_placement_plan_event_and_counters_parity():
 
 def test_serve_spans_cover_pipeline_stages():
     keys = _keys()
+    enable_observability()
     svc = PlexService(keys, 32, n_shards=2)
     try:
-        enable_observability()
         q = np.random.default_rng(7).choice(keys, 6000)
         svc.lookup(q)
         t = svc.submit(q[:1000])
@@ -466,9 +466,30 @@ def test_serve_spans_cover_pipeline_stages():
         names = TRACE.span_names()
         for need in ("serve.lookup", "serve.staging", "serve.dispatch",
                      "serve.sync", "serve.submit", "serve.queue_wait",
-                     "serve.drain"):
+                     "serve.drain", "serve.new_state", "serve.lock",
+                     "serve.take", "serve.timer", "serve.drain.wait",
+                     "serve.copy_back", "serve.cache_count", "serve.fill"):
             assert need in names, f"missing span {need}: {sorted(names)}"
         assert len(names) >= 6
+        evs = TRACE.events()
+        # the constructor's upload, as kept whether traced or not
+        new_state = [e for e in evs if e["name"] == "serve.new_state"]
+        assert len(new_state) == 1
+        assert new_state[0]["dur_us"] == pytest.approx(svc.upload_s * 1e6,
+                                                       abs=1e-3)
+        # every event is a child of the span open on its thread, and the
+        # queue's spans are tied to the ticket
+        by_id = {e["id"]: e for e in evs}
+        for e in evs:
+            if e["parent"] is not None:
+                assert e["parent"] in by_id
+                assert by_id[e["parent"]]["depth"] == e["depth"] - 1
+            else:
+                assert e["depth"] == 0
+        for e in evs:
+            if e["name"] in ("serve.submit", "serve.take", "serve.fill"):
+                a = e["attrs"]
+                assert a.get("req") == t.id or t.id in a.get("reqs", ())
         # lookup latency histograms observed per call
         assert METRICS.histogram("serve.lookup_us").count >= 1
         assert METRICS.histogram("serve.lookup_ns_per_key") \
@@ -528,7 +549,8 @@ def test_health_schema_pinned_and_json():
         assert set(h) == {
             "generation", "epoch", "n_keys", "n_pending", "routed_devices",
             "fallback_chain", "breakers", "degraded", "queue_depth",
-            "queue_limit", "inflight_batches", "shed_queries",
+            "queue_limit", "inflight_batches", "timers_started",
+            "deadline_flushes", "deadline_idle", "shed_queries",
             "backend_failures", "fallback_lookups", "merge_failures",
             "merge_retry_in_s", "merge_backlog_s", "merge_mode",
             "merge_worker_alive", "journal_ops", "wal_bytes",
@@ -764,6 +786,114 @@ def test_span_sampling_keeps_one_in_n():
     with tr.span("t"):
         pass
     assert len(tr.events()) == 1     # back to full fidelity
+
+
+def test_ids_parents_and_the_perf_counter_start():
+    tr = Tracer()
+    tr.enable()
+    t_before = time.perf_counter()
+    with tr.span("root") as root:
+        with tr.span("child") as child:
+            tr.record("rec", 1e-6)
+            tr.event("mark")
+        with tr.span("sibling"):
+            pass
+    tr.record("alone", 1e-6)
+    t_after = time.perf_counter()
+    by = {e["name"]: e for e in tr.events()}
+    assert by["root"]["id"] == root.id and by["child"]["id"] == child.id
+    assert len({e["id"] for e in by.values()}) == len(by)   # unique
+    assert by["root"]["parent"] is None and by["alone"]["parent"] is None
+    assert by["child"]["parent"] == by["sibling"]["parent"] == root.id
+    assert by["rec"]["parent"] == by["mark"]["parent"] == child.id
+    # t0 is the perf_counter start: inside the test's readings, children
+    # inside their parent, and ts is the same instant in epoch seconds
+    for e in by.values():
+        assert t_before <= e["t0"] <= t_after
+        assert e["ts"] - e["t0"] == pytest.approx(tr._wall_offset,
+                                                  abs=2e-6)
+    for name in ("child", "sibling"):
+        e, p = by[name], by["root"]
+        assert p["t0"] <= e["t0"]
+        assert e["t0"] + e["dur_us"] / 1e6 <= \
+            p["t0"] + p["dur_us"] / 1e6 + 1e-6
+    assert by["child"]["t0"] < by["sibling"]["t0"]         # monotonic
+    ts = [e["t0"] for e in tr.events() if e["name"] in ("root", "alone")]
+    assert ts == sorted(ts)
+
+
+def test_dropped_counts_the_ring_overflow():
+    tr = Tracer(maxlen=8)
+    tr.enable()
+    for i in range(20):
+        with tr.span("s", i=i):
+            pass
+    assert len(tr.events()) == 8 and tr.dropped == 12
+    assert [e["attrs"]["i"] for e in tr.events()] == list(range(12, 20))
+    tr.clear()
+    assert tr.dropped == 0 and tr.events() == []
+    tr.record("r", 1e-6)
+    assert tr.dropped == 0
+
+
+def test_sampling_keeps_or_drops_a_whole_tree():
+    """Under ``sample_n = 4`` the decision is the root's: each kept root
+    comes with all its children and records, a dropped one with none;
+    events are kept either way, as roots' children only when kept."""
+    tr = Tracer()
+    tr.enable()
+    tr.sample_n = 4
+    for i in range(40):
+        with tr.span("req", i=i):
+            with tr.span("child", i=i):
+                tr.record("rec", 1e-6, i=i)
+            tr.event("mark", i=i)
+    evs = tr.events()
+    kept = {e["attrs"]["i"] for e in evs if e["name"] == "req"}
+    assert len(kept) == 10
+    for name in ("child", "rec"):
+        assert {e["attrs"]["i"] for e in evs if e["name"] == name} == kept
+    marks = [e for e in evs if e["name"] == "mark"]
+    assert len(marks) == 40                  # events are never sampled
+    roots = {e["id"]: e["attrs"]["i"] for e in evs if e["name"] == "req"}
+    for m in marks:
+        if m["attrs"]["i"] in kept:
+            assert roots[m["parent"]] == m["attrs"]["i"]
+        else:
+            assert m["parent"] is None
+    assert tr._stack() == []                 # the skip markers unwound
+
+
+def test_disabled_serving_sites_build_no_span_and_no_ids_list(
+        monkeypatch):
+    """Tracing off, a served request's span sites (submit, the block's
+    take, staging and dispatch, the timer, the drain and its children, a
+    deadline flush) return the shared null span: no span object and no
+    list of request ids is built, and nothing is recorded. The request
+    ids themselves are always assigned."""
+    import repro_torch.obs.trace as trace_mod
+    import repro_torch.serving.plex_service as ps
+    built = []
+    monkeypatch.setattr(trace_mod, "_Span",
+                        lambda *a: built.append(a[1:]))
+    monkeypatch.setattr(ps, "_reqs", lambda pieces: built.append(pieces))
+    keys = _keys(20_000)
+    svc = PlexService(keys, 32, block=512, max_delay_s=0.02,
+                      cache_slots=1 << 10)
+    try:
+        t1 = svc.submit(keys[:300])
+        deadline = time.monotonic() + 5.0
+        while not t1.ready and time.monotonic() < deadline:
+            time.sleep(0.005)            # the timer thread flushes it
+        t2 = svc.submit(keys[300:1324])  # two whole blocks
+        assert np.array_equal(t2.result(), np.arange(300, 1324))
+        assert np.array_equal(t1.result(), np.arange(300))
+        assert svc.stats.deadline_flushes >= 1
+        assert (t1.id, t2.id) == (1, 2)
+    finally:
+        svc.close()
+    assert built == [] and TRACE.events() == []
+    assert TRACE.span("serve.take", lanes=1) is _NULL
 
 
 # -- flight recorder ---------------------------------------------------------
@@ -1248,19 +1378,44 @@ def test_prometheus_text_parity():
 _NAMES = {"torch": "jnp", "cuda": "pallas", "numpy": "numpy"}
 
 
-def _trace_seq(events, rename=False):
+# the port's spans inside a served request, which the reference has not
+_PORT_ONLY = {"serve.new_state", "serve.lock", "serve.take", "serve.timer",
+              "serve.drain.wait", "serve.copy_back", "serve.cache_count",
+              "serve.fill", "serve.deadline_flush"}
+
+
+def _port_only(e) -> bool:
+    """A span the reference does not record: a name of ``_PORT_ONLY``, or
+    a queue block's staging and dispatch (they carry the block's
+    ``reqs``)."""
+    return e["name"] in _PORT_ONLY or "reqs" in e.get("attrs", {})
+
+
+def _trace_seq(events, port=False):
     """(name, non-timing attrs, depth) of each event, incident events and
-    their tmp paths left out; the port's backend names translated."""
+    their tmp paths left out. ``port``: the port's events seen as the
+    reference records them: its backend names translated, the request
+    spans it alone has left out, request ids dropped, and each depth
+    counted over the ancestors that are kept (through the ``parent``
+    ids)."""
+    by_id = {e["id"]: e for e in events} if port else {}
     out = []
     for e in events:
-        if e["name"] == "incident.bundle":
+        if e["name"] == "incident.bundle" or (port and _port_only(e)):
             continue
         attrs = dict(e.get("attrs", {}))
-        if rename:
+        depth = e["depth"]
+        if port:
             for k in ("backend", "breaker"):
                 if k in attrs:
                     attrs[k] = _NAMES[attrs[k]]
-        out.append((e["name"], attrs, e["depth"]))
+            attrs.pop("req", None)
+            depth, parent = 0, e["parent"]
+            while parent is not None:
+                anc = by_id[parent]
+                depth += not _port_only(anc)
+                parent = anc["parent"]
+        out.append((e["name"], attrs, depth))
     return out
 
 
@@ -1313,7 +1468,7 @@ def test_service_span_sequence_parity():
         for g, w in zip(got, want):
             assert np.array_equal(g, w)
         assert port.stats.merges == ref.stats.merges == 1
-        a = _trace_seq(TRACE.events(), rename=True)
+        a = _trace_seq(TRACE.events(), port=True)
         b = _trace_seq(R.TRACE.events())
         assert len(a) == len(b) > 20
         assert a == b
@@ -1370,7 +1525,7 @@ def test_incident_parity_under_injected_faults(tmp_path):
         pb = [e["attrs"]["kind"] for e in R.TRACE.events()
               if e["name"] == "incident.bundle"]
         assert pa == pb == [k for *_, k in a]
-        tr = [e for e in _trace_seq(TRACE.events(), rename=True)
+        tr = [e for e in _trace_seq(TRACE.events(), port=True)
               if e[0] == "breaker.transition"]
         assert tr == [e for e in _trace_seq(R.TRACE.events())
                       if e[0] == "breaker.transition"]
@@ -1421,4 +1576,5 @@ def test_slo_watchdog_status_parity():
         states |= {v["state"] for v in sa.values()}
     assert states == {"ok", "breach"}
     assert a.breaches == b.breaches and sum(a.breaches.values()) > 0
-    assert _trace_seq(TRACE.events()) == _trace_seq(R.TRACE.events())
+    assert _trace_seq(TRACE.events(), port=True) == \
+        _trace_seq(R.TRACE.events())

@@ -17,6 +17,7 @@ import pytest
 from repro.data import generate
 from repro.serving import PlexService as RService
 from repro_torch.obs.metrics import METRICS
+from repro_torch.obs.trace import TRACE
 from repro_torch.resilience.errors import QueueFullError
 from repro_torch.serving import PlexService
 
@@ -28,6 +29,16 @@ def _reset_registry():
     yield
     METRICS.reset()
     METRICS.disable()
+
+
+@pytest.fixture
+def traced():
+    """``TRACE`` armed for one test, cleared before and after."""
+    TRACE.clear()
+    TRACE.enable()
+    yield TRACE
+    TRACE.disable()
+    TRACE.clear()
 
 
 def _svc(keys, **kw):
@@ -69,6 +80,9 @@ def test_submit_deadline_flush(rng):
     assert svc.stats.inflight_batches >= 1
     svc.drain()
     assert svc.stats.inflight_batches == 0
+    # each submit launched its own remainder: no timer was needed
+    assert (svc.stats.timers_started, svc.stats.deadline_flushes,
+            svc.stats.deadline_idle) == (0, 0, 0)
 
 
 def test_ticket_result_triggers_drain(rng):
@@ -111,6 +125,10 @@ def test_background_deadline_flush_fills_tickets(rng):
     assert t._filled == 100
     assert np.array_equal(t.result(), np.arange(100))
     assert svc.stats.inflight_batches == 0
+    # one pass did the work; a pass woken before the deadline re-armed
+    assert svc.stats.deadline_flushes == 1
+    assert svc.stats.timers_started == 1 + svc.stats.deadline_idle
+    assert svc.health()["deadline_flushes"] == 1
 
 
 def _wait_filled(tickets, timeout_s=5.0):
@@ -131,6 +149,8 @@ def test_deadline_timer_drains_whole_blocks(rng):
     assert _wait_filled([t]), "launched blocks left undrained"
     assert np.array_equal(t.result(), np.arange(1024))
     assert svc.stats.inflight_batches == 0
+    assert (svc.stats.timers_started, svc.stats.deadline_flushes,
+            svc.stats.deadline_idle) == (1, 1, 0)
 
 
 def test_deadline_timer_drains_a_late_submits_flush(rng):
@@ -149,6 +169,25 @@ def test_deadline_timer_drains_a_late_submits_flush(rng):
     assert np.array_equal(t1.result(), np.arange(100))
     assert np.array_equal(t2.result(), np.arange(100, 200))
     assert svc.stats.inflight_batches == 0
+    # the late submit launched; the pending timer found only the drain
+    assert (svc.stats.timers_started, svc.stats.deadline_flushes,
+            svc.stats.deadline_idle) == (1, 1, 0)
+
+
+def test_drain_counts_a_blocks_cache_hits_as_the_batched_sync(rng):
+    """The drain reads one block's hit count as it is; a synchronous
+    lookup concatenates its blocks' counts: the same launches count the
+    same hits and lanes."""
+    keys = sorted_u64(rng, 30_000)
+    q = np.concatenate([keys[:700], keys[:324]])   # repeats: the cache hits
+    a = _svc(keys, max_delay_s=60.0, cache_slots=1 << 12)
+    b = _svc(keys, max_delay_s=60.0, cache_slots=1 << 12)
+    for _ in range(2):
+        a.lookup(q)
+        assert np.array_equal(b.submit(q).result(),
+                              np.searchsorted(keys, q, "left"))
+    assert a.stats.cache_queries == b.stats.cache_queries == 2 * q.size
+    assert a.stats.cache_hits == b.stats.cache_hits > 0
 
 
 def test_drain_cancels_timer(rng):
@@ -159,6 +198,121 @@ def test_drain_cancels_timer(rng):
     svc.drain()
     assert svc._timer is None
     assert t.ready
+    assert (svc.stats.timers_started, svc.stats.deadline_flushes,
+            svc.stats.deadline_idle) == (1, 0, 0)
+
+
+# -- spans inside a served request -------------------------------------------
+
+def _inside(child, parent, slack_s=1e-6) -> bool:
+    """``child``'s interval lies in ``parent``'s (t0 and dur_us)."""
+    return (parent["t0"] - slack_s <= child["t0"] and
+            child["t0"] + child["dur_us"] / 1e6
+            <= parent["t0"] + parent["dur_us"] / 1e6 + slack_s)
+
+
+def _tags(e) -> set:
+    a = e.get("attrs", {})
+    return set(a.get("reqs", ())) | ({a["req"]} if "req" in a else set())
+
+
+SUBMIT_CHILDREN = {"serve.lock", "serve.take", "serve.staging",
+                   "serve.dispatch", "serve.timer"}
+DRAIN_CHILDREN = {"serve.lock", "serve.timer", "serve.drain.wait",
+                  "serve.copy_back", "serve.cache_count", "serve.fill"}
+
+
+def test_traced_request_spans_nest_and_carry_its_id(rng, traced):
+    """A traced ``submit(...).result()`` of one whole block: every span of
+    the request's tree, each child inside its parent's interval, each
+    carrying the ticket's id."""
+    keys = sorted_u64(rng, 30_000)
+    svc = _svc(keys, max_delay_s=60.0, cache_slots=1 << 12)
+    svc.warmup()
+    traced.clear()
+    q = keys[1_000:1_512]
+    t = svc.submit(q)
+    assert np.array_equal(t.result(), np.arange(1_000, 1_512))
+    assert svc.stats.cache_queries == 512        # one block's lanes counted
+    evs = traced.events()
+    by_id = {e["id"]: e for e in evs}
+    assert traced.dropped == 0
+
+    def children(root):
+        return [e for e in evs if e["parent"] == root["id"]]
+
+    (submit,) = [e for e in evs if e["name"] == "serve.submit"]
+    (drain,) = [e for e in evs if e["name"] == "serve.drain"]
+    assert submit["parent"] is None and drain["parent"] is None
+    assert {e["name"] for e in children(submit)} == SUBMIT_CHILDREN
+    assert {e["name"] for e in children(drain)} == DRAIN_CHILDREN
+    (take,) = [e for e in children(submit) if e["name"] == "serve.take"]
+    assert [e["name"] for e in children(take)] == ["serve.queue_wait"]
+    (dispatch,) = [e for e in evs if e["name"] == "serve.dispatch"]
+    assert dispatch["attrs"]["path"] == "queue"
+    assert [e["attrs"]["op"] for e in evs
+            if e["name"] == "serve.timer"] == ["start", "cancel"]
+    for e in evs:
+        if e["parent"] is not None:
+            assert _inside(e, by_id[e["parent"]]), e["name"]
+        assert _tags(e) == {t.id}, e
+    assert submit["attrs"]["req"] == drain["attrs"]["req"] == t.id
+
+
+def test_two_tickets_in_one_block_share_its_spans(rng, traced):
+    keys = sorted_u64(rng, 30_000)
+    svc = _svc(keys, max_delay_s=60.0)
+    svc.warmup()
+    t1 = svc.submit(keys[:300])                  # queued
+    t2 = svc.submit(keys[300:512])               # fills the block: launched
+    assert svc.stats.inflight_batches == 1 and t2.id == t1.id + 1
+    svc.drain()
+    evs = traced.events()
+    for name in ("serve.take", "serve.staging", "serve.dispatch",
+                 "serve.drain.wait", "serve.copy_back",
+                 "serve.cache_count", "serve.fill"):
+        (e,) = [e for e in evs if e["name"] == name]
+        assert e["attrs"]["reqs"] == [t1.id, t2.id], name
+    waits = [e for e in evs if e["name"] == "serve.queue_wait"]
+    assert [e["attrs"]["req"] for e in waits] == [t1.id, t2.id]
+    # the block launched inside the second submit, the drain untagged
+    (take,) = [e for e in evs if e["name"] == "serve.take"]
+    submits = {e["id"]: e for e in evs if e["name"] == "serve.submit"}
+    assert submits[take["parent"]]["attrs"]["req"] == t2.id
+    (drain,) = [e for e in evs if e["name"] == "serve.drain"]
+    assert drain["attrs"]["req"] is None
+    assert np.array_equal(t1.result(), np.arange(300))
+    assert np.array_equal(t2.result(), np.arange(300, 512))
+
+
+def test_deadline_flush_spans_carry_the_tickets_ids(rng, traced):
+    """A remainder answered by the timer thread: its launch and drain nest
+    in ``serve.deadline_flush`` on that thread, tagged with the ticket."""
+    keys = np.unique(rng.integers(0, 1 << 62, 10_000, dtype=np.uint64))
+    svc = _svc(keys, max_delay_s=0.05)
+    svc.warmup()
+    t = svc.submit(keys[:100])
+    assert _wait_filled([t]), "the deadline timer did not fill the ticket"
+    assert np.array_equal(t.result(), np.arange(100))
+    evs = traced.events()
+    flushes = [e for e in evs if e["name"] == "serve.deadline_flush"]
+    (flush,) = [e for e in flushes if e["attrs"]["work"]]
+    assert len(flushes) == svc.stats.deadline_flushes + \
+        svc.stats.deadline_idle
+    assert flush["thread"] != threading.current_thread().name
+    inside = [e for e in evs if e["parent"] == flush["id"]]
+    assert {e["name"] for e in inside} == {
+        "serve.lock", "serve.take", "serve.staging", "serve.dispatch",
+        "serve.drain.wait", "serve.copy_back", "serve.cache_count",
+        "serve.fill"}
+    for e in inside:
+        if e["name"] != "serve.lock":
+            assert _tags(e) == {t.id}, e
+        assert _inside(e, flush) and e["thread"] == flush["thread"]
+    (submit,) = [e for e in evs if e["name"] == "serve.submit"]
+    assert submit["attrs"]["req"] == t.id
+    assert [e["attrs"]["req"] for e in evs
+            if e["name"] == "serve.timer"][:1] == [t.id]
 
 
 def test_drain_timeout_on_a_held_lock(rng):

@@ -669,12 +669,14 @@ def test_open_missing_manifest_still_file_not_found(tmp_path):
 
 def test_health_is_json_and_tracks_wal(rng, tmp_path):
     """``health()`` carries the reference's keys (less ``slo``, which comes
-    with the port's tracing) and tracks the WAL."""
+    with the port's tracing) and the port's counts of the queue's deadline
+    timer, and tracks the WAL."""
     svc, _ = _service(rng, n=10_000)
     ref = RService(sorted_u64(rng, 5_000), eps=32, block=BLOCK)
     h0 = svc.health()
     json.dumps(h0)
-    assert set(h0) == set(ref.health()) - {"slo"}
+    assert set(h0) == (set(ref.health()) - {"slo"}) | {
+        "timers_started", "deadline_flushes", "deadline_idle"}
     assert h0["generation"] == -1 and h0["wal_bytes"] == 0
     assert h0["routed_devices"] == 0
     svc.save(tmp_path, fsync=False)
