@@ -47,7 +47,8 @@ deletes, and one device launch per micro-batch.
   ``live_hotness()`` and ``probe_trip_hist()`` and into ``METRICS``.
 * **Queue.** ``submit()`` packs the queries of many callers into shared
   micro-batches: full blocks launch at once, a remainder once its oldest
-  query has waited ``max_delay_s`` (a timer thread flushes and drains it).
+  query has waited ``max_delay_s`` (the service's one deadline thread
+  flushes and drains it).
   Each launched batch holds a CUDA event, which ``drain()`` and
   ``LookupTicket.ready`` wait on or query. ``max_queue`` bounds the queue
   (``overflow="reject"`` raises ``QueueFullError``, ``"shed"`` returns a
@@ -115,24 +116,29 @@ deletes, and one device launch per micro-batch.
           serve.queue_wait       req, lanes     each piece's time queued
         serve.staging            reqs           pinned buffer, bias, upload
         serve.dispatch           reqs, "queue"  K1's launch and its event
-        serve.timer              req, op        Timer start (or cancel)
+        serve.timer              req, op        the deadline armed (or
+                                                cleared)
       serve.drain                req            drain(), result()
-        serve.lock, serve.timer  req            the lock; the timer cancelled
+        serve.lock, serve.timer  req            the lock; the deadline
+                                                cleared
         (serve.take, serve.staging, serve.dispatch: a remainder launched)
         serve.drain.wait         reqs           the host waiting on the card
         serve.copy_back          reqs           device to pageable host copy
         serve.cache_count        reqs           the cache's hit count read
         serve.fill               reqs           answers into the tickets, the
                                                 block freed
-      serve.deadline_flush       work           the timer thread's pass; its
-                                                lock, launches and drains
-                                                nest as above
+      serve.deadline_flush       work           the deadline thread's pass;
+                                                its lock (re-entered: the
+                                                thread wakes holding it),
+                                                launches and drains nest as
+                                                above
 
   ``req`` is the ticket's id (``LookupTicket.id``, always assigned), ``reqs``
   the ids of the tickets with lanes in a block (built only while tracing),
-  so a block the timer thread answers is still tied to its requests.
-  ``stats.timers_started``, ``deadline_flushes`` and ``deadline_idle`` count
-  the timer's threads and passes, always. No span syncs the card or reads
+  so a block the deadline thread answers is still tied to its requests.
+  ``stats.timers_started``, ``deadline_threads``, ``deadline_flushes`` and
+  ``deadline_idle`` count the deadlines armed, the deadline threads started
+  and their passes, always. No span syncs the card or reads
   a device value, so a request's launches overlap as they do untraced.
   Incident bundles (``obs.incident``) are written for
   ``backend.unavailable``, ``merge.failure``, ``merge.worker_death``,
@@ -154,6 +160,7 @@ import pathlib
 import shutil
 import threading
 import time
+import weakref
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -208,6 +215,9 @@ QUARANTINE_DIR = "quarantine"
 _MAX_ERRORS = 16
 _WAL_OPS = {"insert": OP_INSERT, "delete": OP_DELETE}
 _BIAS = np.uint64(1 << 63)
+# the deadline thread's longest wait: at least this often it looks whether
+# its service was closed or collected
+_DEADLINE_IDLE_S = 1.0
 
 
 @dataclasses.dataclass
@@ -233,9 +243,12 @@ class ServiceStats:
     backend_failures: int = 0     # dispatch/sync failures (incl. injected)
     merge_failures: int = 0       # contained merge/commit failures
     shed_queries: int = 0         # lanes refused by admission control
-    # the queue's deadline timer: threads started, and their passes that
-    # launched or drained work against those that found none
+    # the queue's deadline: deadlines armed, deadline threads started (one
+    # for the service's life unless it closes and serves again), and the
+    # thread's passes that launched or drained work against those that
+    # found none
     timers_started: int = 0
+    deadline_threads: int = 0
     deadline_flushes: int = 0
     deadline_idle: int = 0
     # set-up: the constructor's planes and their upload (``_new_state``)
@@ -430,6 +443,64 @@ def _reqs(pieces: list) -> tuple[int, ...]:
     return tuple(piece[0].id for piece in pieces)
 
 
+@contextlib.contextmanager
+def _on_device(device: torch.device, stream=None):
+    """``device`` as the current device when it is a card (for a service's
+    own threads), and ``stream`` as the current stream when given."""
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device):
+        if stream is None:
+            yield
+        else:
+            with torch.cuda.stream(stream):
+                yield
+
+
+def _deadline_loop(ref: weakref.ref, cond: threading.Condition,
+                   device: torch.device) -> None:
+    """A service's deadline thread. It waits on ``cond``, the condition over
+    the service lock, until the armed deadline and runs the deadline pass
+    once it has passed; a wake that finds the deadline cleared or later is
+    no pass. With none armed it waits one ``max_delay_s`` if deadlines were
+    armed since its last look (a stream of requests, whose arms then wake
+    nobody), else ``_DEADLINE_IDLE_S``. It holds the service only through
+    ``ref`` while it waits, and ends once the service is collected, or
+    closed with no deadline armed."""
+    seen = -1                       # stats.timers_started at the last look
+    with _on_device(device), cond:
+        try:
+            while True:
+                svc = ref()
+                if svc is None or (svc._closed and svc._deadline is None):
+                    return
+                svc._sleep_until = None
+                now = time.monotonic()
+                due = svc._deadline
+                if due is not None and due <= now:
+                    svc._deadline_flush()
+                    continue
+                wait = _DEADLINE_IDLE_S
+                if due is not None:
+                    wait = min(wait, due - now)
+                elif svc.stats.timers_started != seen:
+                    # requests are flowing: a deadline armed from now on,
+                    # max_delay_s ahead, falls due after this wait ends, so
+                    # its arm need not notify
+                    wait = min(wait, svc.max_delay_s)
+                seen = svc.stats.timers_started
+                svc._sleep_until = now + wait
+                del svc
+                cond.wait(wait)
+        except Exception:
+            # a dead thread is replaced at the next arm
+            log.exception("deadline thread failed")
+            svc = ref()
+            if svc is not None:
+                svc._deadline = svc._sleep_until = None
+
+
 def default_fallback(device) -> str | None:
     """``fallback=``'s default on ``device``: ``"auto"`` on the CPU, where
     every backend runs a plain version anyway; ``None`` on the card, so a
@@ -566,12 +637,19 @@ class PlexService:
         # the queue: chunks are [ticket, queries, consumed, arrival];
         # outstanding holds launched, unsynced batches. Queue and update
         # state change only under the RLock (submit, drain, the deadline
-        # timer, insert/delete/merge).
+        # thread, insert/delete/merge).
         self._q_chunks: collections.deque = collections.deque()
         self._q_len = 0
         self._outstanding: list[tuple] = []
         self._lock = threading.RLock()
-        self._timer: threading.Timer | None = None
+        # the queue's deadline (monotonic seconds; None: none armed), served
+        # by one deadline thread started at the first arm, which waits on
+        # _cond until it; _sleep_until is when the thread's wait ends (None:
+        # it is not waiting)
+        self._cond = threading.Condition(self._lock)
+        self._deadline: float | None = None
+        self._sleep_until: float | None = None
+        self._deadline_thread: threading.Thread | None = None
         self._ticket_ids = itertools.count(1)
         # durable-mode attachment (None: in memory only); load_s is the wall
         # time PlexService.open took (map, planes, WAL replay)
@@ -1066,8 +1144,8 @@ class PlexService:
     def health(self) -> dict:
         """One JSON-friendly operational snapshot: what an operator (or a
         chaos run) needs to tell *degraded* from *broken* — generation,
-        queue depth and the deadline timer's passes, WAL size, breaker
-        states, recent errors. Lock-free;
+        queue depth, the deadlines armed and the deadline thread's starts
+        and passes, WAL size, breaker states, recent errors. Lock-free;
         safe to poll while serving."""
         state = self._state
         dur = self._dur
@@ -1098,6 +1176,7 @@ class PlexService:
             "queue_limit": int(self.max_queue),
             "inflight_batches": int(self.stats.inflight_batches),
             "timers_started": int(self.stats.timers_started),
+            "deadline_threads": int(self.stats.deadline_threads),
             "deadline_flushes": int(self.stats.deadline_flushes),
             "deadline_idle": int(self.stats.deadline_idle),
             "shed_queries": int(self.stats.shed_queries),
@@ -1294,20 +1373,6 @@ class PlexService:
             self.drain()
             return self._merge_once()
 
-    @contextlib.contextmanager
-    def _on_device(self, stream=None):
-        """This service's card as the current device (for threads of the
-        service), and ``stream`` as the current stream when given."""
-        if self.device.type != "cuda":
-            yield
-            return
-        with torch.cuda.device(self.device):
-            if stream is None:
-                yield
-            else:
-                with torch.cuda.stream(stream):
-                    yield
-
     def _merge_once(self) -> bool:
         """One capture -> rebuild -> publish cycle. The caller serialises
         merges (sync: the service lock; background: the merge mutex, so
@@ -1341,7 +1406,7 @@ class PlexService:
             # planes are never freed under a running launch.
             if self.device.type == "cuda" and self._merge_stream is None:
                 self._merge_stream = torch.cuda.Stream(self.device)
-            with self._on_device(self._merge_stream):
+            with _on_device(self.device, self._merge_stream):
                 new = self._new_state(snap)
                 self._warm(new)
             if self._merge_stream is not None:
@@ -1458,7 +1523,7 @@ class PlexService:
         reached, backoff expired), run one cycle under the merge mutex.
         ``MergeFailedError`` is contained; any other exception ends this
         worker with the same backoff armed and the live state untouched."""
-        with self._on_device():
+        with _on_device(self.device):
             while True:
                 self._merge_wakeup.wait()
                 self._merge_wakeup.clear()
@@ -1497,10 +1562,15 @@ class PlexService:
             self._cancel_timer()
             self.drain()
             worker = self._merge_worker
-        # joined outside the lock: the worker's publish needs it
+            deadline_thread = self._deadline_thread
+            self._cond.notify_all()
+        # joined outside the lock: the worker's publish needs it, and the
+        # deadline thread wakes holding it
         if worker is not None and worker.is_alive():
             self._merge_wakeup.set()
             worker.join()
+        if deadline_thread is not None:
+            deadline_thread.join()
         with self._lock:
             if self._dur is not None:
                 self._dur.wal.close()
@@ -1718,9 +1788,11 @@ class PlexService:
         """Queue queries for micro-batch formation across callers.
 
         Full blocks launch at once (asynchronously); a remainder launches
-        once the oldest queued query has waited ``max_delay_s``, by a timer
-        thread if no further call comes; that timer also drains every
-        launched block, so tickets fill with no further call. On the
+        once the oldest queued query has waited ``max_delay_s``, by the
+        service's deadline thread if no further call comes; its pass also
+        drains every launched block, so tickets fill with no further call.
+        A submit arms the deadline with a field set under the lock: the one
+        thread starts at the first arm and serves every later one. On the
         per-shard and routed paths
         the ticket is filled at once. With ``max_queue > 0`` a submit that
         would pass the bound is refused: ``overflow="reject"`` raises
@@ -1771,41 +1843,55 @@ class PlexService:
             if self._q_len:
                 age = now - self._q_chunks[0][3]
                 if age >= self.max_delay_s:
-                    # an older chunk's timer is pending: it drains these
+                    # an older chunk's deadline is armed: its pass drains
+                    # these
                     self._flush_partial(st)
                 else:
                     self._arm_timer(self.max_delay_s - age, req)
             else:
-                # the queries filled whole blocks: the timer drains them
+                # the queries filled whole blocks: the deadline's pass
+                # drains them
                 self._arm_timer(self.max_delay_s, req)
         finally:
             self._lock.release()
         return None
 
     def _arm_timer(self, delay_s: float, req: int | None = None) -> None:
-        """Schedule the deadline flush (one live timer at most; lock
-        held); ``req``: the request that armed it."""
-        if self._timer is not None:
+        """Arm the deadline ``delay_s`` from now (one armed deadline at
+        most; lock held); ``req``: the request that armed it. Starts the
+        deadline thread if none is alive, and wakes it only if its wait
+        would end after the new deadline."""
+        if self._deadline is not None:
             return
         with TRACE.span("serve.timer", op="start", req=req):
-            t = threading.Timer(max(delay_s, 0.0), self._deadline_flush)
-            t.daemon = True
-            self._timer = t
-            t.start()
+            self._deadline = time.monotonic() + max(delay_s, 0.0)
+            th = self._deadline_thread
+            if th is None or not th.is_alive():
+                th = threading.Thread(
+                    target=_deadline_loop, name="plex-deadline", daemon=True,
+                    args=(weakref.ref(self), self._cond, self.device))
+                self._deadline_thread = th
+                self.stats.deadline_threads += 1
+                th.start()
+            elif (self._sleep_until is not None
+                  and self._sleep_until > self._deadline):
+                self._cond.notify()
         self.stats.timers_started += 1
 
     def _cancel_timer(self, req: int | None = None) -> None:
-        if self._timer is not None:
+        """Clear the armed deadline (lock held). The thread is not woken:
+        its wait ends at the old deadline or sooner, and finds none."""
+        if self._deadline is not None:
             with TRACE.span("serve.timer", op="cancel", req=req):
-                self._timer.cancel()
-            self._timer = None
+                self._deadline = None
 
     def _deadline_flush(self) -> None:
-        """Timer thread: launch and drain the queued remainder once its
-        deadline has passed (re-arm when woken early), and drain the blocks
-        a submit launched after the timer was armed. A failure is parked on
-        the tickets it concerns and logged here."""
-        with TRACE.span("serve.deadline_flush") as sp, self._on_device():
+        """The deadline thread's pass, once the armed deadline has passed
+        (the thread holds the lock): launch and drain the queued remainder
+        (re-arm when its oldest query is younger than ``max_delay_s``), and
+        drain the blocks a submit launched after the deadline was armed. A
+        failure is parked on the tickets it concerns and logged here."""
+        with TRACE.span("serve.deadline_flush") as sp:
             with TRACE.span("serve.lock"):
                 self._lock.acquire()
             try:
@@ -1817,7 +1903,7 @@ class PlexService:
     def _deadline_pass(self) -> bool:
         """One deadline pass under the lock; whether it launched or drained
         anything (counted either way)."""
-        self._timer = None
+        self._deadline = None
         work = bool(self._q_len or self._outstanding)
         if work and self._q_len:
             age = time.monotonic() - self._q_chunks[0][3]
@@ -2067,7 +2153,7 @@ class PlexService:
         try:
             if not get_backend(backend).stacked:
                 return
-            with self._on_device():
+            with _on_device(self.device):
                 self._warm(self._state, backend)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)

@@ -550,6 +550,7 @@ def test_health_schema_pinned_and_json():
             "generation", "epoch", "n_keys", "n_pending", "routed_devices",
             "fallback_chain", "breakers", "degraded", "queue_depth",
             "queue_limit", "inflight_batches", "timers_started",
+            "deadline_threads",
             "deadline_flushes", "deadline_idle", "shed_queries",
             "backend_failures", "fallback_lookups", "merge_failures",
             "merge_retry_in_s", "merge_backlog_s", "merge_mode",

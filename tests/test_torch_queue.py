@@ -5,9 +5,13 @@ deadline flush, ``result()`` draining) and of ``tests/test_updatable.py``
 (updates drain the queue first, the timer thread fills tickets, ``drain``
 cancels the timer), plus admission control (``max_queue`` with reject and
 shed) and the per-shard path, where ``submit`` answers at once. The port
+serves every deadline from one long-lived thread a service, where the
+reference starts a ``threading.Timer`` an arm: its life and its waits are
+tested here too. The port
 launches only the lanes it has, so ``padded_lanes`` stays 0 where the
 reference pads a block.
 """
+import gc
 import threading
 import time
 
@@ -20,6 +24,7 @@ from repro_torch.obs.metrics import METRICS
 from repro_torch.obs.trace import TRACE
 from repro_torch.resilience.errors import QueueFullError
 from repro_torch.serving import PlexService
+from repro_torch.serving.plex_service import _DEADLINE_IDLE_S
 
 from conftest import sorted_u64
 
@@ -194,12 +199,84 @@ def test_drain_cancels_timer(rng):
     keys = np.unique(rng.integers(0, 1 << 62, 5_000, dtype=np.uint64))
     svc = _svc(keys, max_delay_s=30.0)
     t = svc.submit(keys[:64])
-    assert svc._timer is not None
+    assert svc._deadline is not None
     svc.drain()
-    assert svc._timer is None
+    assert svc._deadline is None
     assert t.ready
     assert (svc.stats.timers_started, svc.stats.deadline_flushes,
             svc.stats.deadline_idle) == (1, 0, 0)
+
+
+# -- the deadline thread ------------------------------------------------------
+
+def test_one_deadline_thread_serves_every_arm(rng):
+    """50 whole-block requests arm 50 deadlines, all on the one deadline
+    thread the first arm started: no thread is started a request."""
+    keys = sorted_u64(rng, 30_000)
+    before = threading.active_count()
+    svc = _svc(keys, max_delay_s=60.0)
+    svc.warmup()
+    for i in range(50):
+        q = keys[i * 512:(i + 1) * 512]
+        assert np.array_equal(svc.submit(q).result(),
+                              np.searchsorted(keys, q, "left"))
+        assert threading.active_count() <= before + 1
+    assert svc.stats.timers_started == 50
+    assert svc.stats.deadline_threads == 1
+    assert svc.health()["deadline_threads"] == 1
+    svc.close()
+
+
+@pytest.mark.parametrize("end", ["close", "collect"])
+def test_deadline_thread_ends_with_its_service(rng, end):
+    """``close()`` joins the deadline thread (a second close is a no-op); an
+    unclosed service that is collected lets it end within a few idle
+    waits, since the thread holds the service only weakly."""
+    keys = sorted_u64(rng, 10_000)
+    svc = _svc(keys, max_delay_s=60.0)
+    t = svc.submit(keys[:100])                  # arms: the thread starts
+    th = svc._deadline_thread
+    assert th is not None and th.is_alive()
+    assert np.array_equal(t.result(), np.searchsorted(keys, keys[:100]))
+    if end == "close":
+        svc.close()
+        assert not th.is_alive()
+        svc.close()
+        assert svc.health()["closed"] and svc._deadline_thread is th
+    else:
+        del svc, t
+        gc.collect()
+        th.join(4 * _DEADLINE_IDLE_S)
+    assert not th.is_alive()
+
+
+def test_an_idle_deadline_thread_meets_a_new_deadline(rng):
+    """After the thread has idled through several waits, a partial
+    remainder still launches within ``max_delay_s``, with no caller action:
+    the arm wakes a thread whose idle wait would end later."""
+    keys = np.unique(rng.integers(0, 1 << 62, 10_000, dtype=np.uint64))
+    svc = _svc(keys, max_delay_s=0.05)
+    svc.warmup()
+    t1 = svc.submit(keys[:100])                 # starts the thread
+    assert _wait_filled([t1]), "the deadline thread did not fill the ticket"
+    time.sleep(3.5 * _DEADLINE_IDLE_S)          # several idle waits
+    # submit with at least half an idle wait left, so a wait left to run
+    # out would miss the deadline by far more than the slack below
+    until = time.monotonic() + 5 * _DEADLINE_IDLE_S
+    while time.monotonic() < until and (
+            svc._sleep_until is None
+            or svc._sleep_until - time.monotonic() < _DEADLINE_IDLE_S / 2):
+        time.sleep(0.005)
+    t0 = time.monotonic()
+    t2 = svc.submit(keys[100:200])
+    assert _wait_filled([t2], timeout_s=5.0)
+    assert time.monotonic() - t0 < svc.max_delay_s + 0.3
+    assert np.array_equal(t2.result(), np.arange(100, 200))
+    # the idle waits counted nothing: two arms, two passes, one thread
+    assert (svc.stats.timers_started, svc.stats.deadline_threads,
+            svc.stats.deadline_flushes, svc.stats.deadline_idle) == \
+        (2, 1, 2, 0)
+    svc.close()
 
 
 # -- spans inside a served request -------------------------------------------
@@ -370,7 +447,7 @@ def test_per_shard_path_answers_submit_at_once():
     q = keys[np.random.default_rng(1).integers(0, keys.size, 700)]
     t = svc.submit(q)
     assert t.ready and t._filled == q.size
-    assert svc._q_len == 0 and svc._timer is None
+    assert svc._q_len == 0 and svc._deadline is None
     assert np.array_equal(t.result(), np.searchsorted(keys, q, "left"))
 
 

@@ -676,7 +676,8 @@ def test_health_is_json_and_tracks_wal(rng, tmp_path):
     h0 = svc.health()
     json.dumps(h0)
     assert set(h0) == (set(ref.health()) - {"slo"}) | {
-        "timers_started", "deadline_flushes", "deadline_idle"}
+        "timers_started", "deadline_threads", "deadline_flushes",
+        "deadline_idle"}
     assert h0["generation"] == -1 and h0["wal_bytes"] == 0
     assert h0["routed_devices"] == 0
     svc.save(tmp_path, fsync=False)
